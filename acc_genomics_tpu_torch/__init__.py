@@ -14,9 +14,15 @@ jax.
 Layout:
   shared.py        the JAX package's framework-free modules the port uses
   device.py        explicit device resolution (cuda raises without a card)
-  build.py         nvcc build of csrc/*.cu into _build/, ctypes loading
+  build.py         nvcc build of csrc/*.cu into _build/, ctypes loading;
+                   the locked build of the native host library
   ops/pairhmm/     forward kernel wrappers + plain twins, state conversion
-  engine/          bucketing + PairHMMEngine (pack -> kernel -> epilogue)
+  ops/sw/          SW fill and walk kernel wrappers + plain twins, decode,
+                   one-bucket launch
+  engine/          bucketing, PairHMMEngine (pack -> kernel -> epilogue),
+                   SWEngine (bucket -> fill + walk -> one fetch -> decode)
+  models/          HaplotypeCallerCore on the two engines
+  io/synth.py      synthetic active regions (gen_region)
 """
 
 __version__ = "0.1.0"

@@ -7,14 +7,20 @@ hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is.  A failed build or load raises with
 the compiler's output: there is no fallback.
 
+The JAX package's native host library (``acc_genomics_tpu/native``) is
+built here too, with a C++ compiler, into the same directory and under an
+inter-process lock (``build_native``, ``ensure_native``).
+
 Pointers and the stream cross the C boundary as ``ctypes.c_void_p``;
 callers set ``argtypes`` on the functions they use.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import fcntl
 import hashlib
 import os
 import shutil
@@ -34,6 +40,9 @@ NVCC_FLAGS = (
     "-ftz=false", "-prec-div=true", "-prec-sqrt=true",
     "-Xptxas", "-v",
 )
+# the flags of acc_genomics_tpu/native/Makefile
+NATIVE_CXXFLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
+                   "-fopenmp")
 
 
 @dataclasses.dataclass
@@ -46,6 +55,7 @@ class BuiltLibrary:
 
 
 _libs: Dict[str, BuiltLibrary] = {}
+_name_locks: Dict[str, threading.Lock] = {}
 _lock = threading.Lock()
 
 
@@ -72,37 +82,92 @@ def _source_hash(paths: Sequence[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def ensure_native() -> bool:
-    """Load the JAX package's native host library (packers, host engines,
-    fp64 recompute), building it first where needed.  That library builds
-    itself with ``make`` and ``$CXX``; where ``$CXX`` cannot build it (a
-    compiler without OpenMP), the host's other C++ compilers are tried
-    before its first load.  Returns ``native.available()``."""
+@dataclasses.dataclass
+class NativeBuild:
+    path: str
+    built: bool  # False when another process (or an earlier call) built it
+
+
+@contextlib.contextmanager
+def _file_lock(path: str):
+    """Exclusive inter-process lock on ``path`` (created if missing)."""
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def build_native(build_dir: str = BUILD_DIR) -> NativeBuild:
+    """Compile the JAX package's native host library into this package's
+    own ``<build_dir>/libaccnative-<hash>.so`` (hash of the source and the
+    flags), once across processes.
+
+    The build runs under an ``flock`` on ``<build_dir>/native.lock`` and
+    writes a temporary file that ``os.replace`` moves into place, so no
+    process ever sees a half-written library.  ``$CXX`` is tried first,
+    then the host's ``g++`` and ``c++`` (a ``$CXX`` without OpenMP cannot
+    build it).  Raises with every compiler's output when none can."""
     from acc_genomics_tpu_torch.shared import native
 
-    native_dir = os.path.dirname(os.path.abspath(native.__file__))
+    src = os.path.join(os.path.dirname(os.path.abspath(native.__file__)),
+                       "accnative.cpp")
+    h = hashlib.sha256(" ".join(NATIVE_CXXFLAGS).encode())
+    with open(src, "rb") as f:
+        h.update(f.read())
+    os.makedirs(build_dir, exist_ok=True)
+    out = os.path.join(build_dir, f"libaccnative-{h.hexdigest()[:16]}.so")
+    with _file_lock(os.path.join(build_dir, "native.lock")):
+        if os.path.exists(out):
+            return NativeBuild(out, False)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        logs, tried = [], []
+        for cxx in (os.environ.get("CXX"), shutil.which("g++"),
+                    shutil.which("c++")):
+            if not cxx or cxx in tried:
+                continue
+            tried.append(cxx)
+            cmd = [cxx, *NATIVE_CXXFLAGS, "-shared", "-o", tmp, src]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            if proc.returncode == 0:
+                os.replace(tmp, out)
+                return NativeBuild(out, True)
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    raise RuntimeError(
+        "no C++ compiler could build the native host library "
+        f"(tried {tried or 'none: no $CXX, g++ or c++'}):\n" + "\n".join(logs)
+    )
+
+
+def ensure_native(build_dir: str = BUILD_DIR) -> bool:
+    """Load the JAX package's native host library (packers, host engines,
+    fp64 recompute) from the port's own build of it (``build_native``).
+    Returns ``native.available()``; raises when it cannot be built."""
+    from acc_genomics_tpu_torch.shared import native
+
     with _lock:
-        built = os.path.exists(os.path.join(native_dir, "libaccnative.so"))
-        if not built and shutil.which("make"):
-            tried = []
-            for cxx in (os.environ.get("CXX"), shutil.which("g++"),
-                        shutil.which("c++")):
-                if not cxx or cxx in tried:
-                    continue
-                tried.append(cxx)
-                proc = subprocess.run(
-                    ["make", "-s", "libaccnative.so", f"CXX={cxx}"],
-                    cwd=native_dir, capture_output=True,
-                )
-                if proc.returncode == 0:
-                    break
+        if native._lib is None:
+            # The JAX package builds its library with an unlocked ``make``
+            # into one fixed path, so a process can load a file that
+            # another is still writing, and after one failed load
+            # (``_tried``) it never loads again.  Point it at the port's
+            # own copy, which is complete before it appears, and clear a
+            # failed attempt, before the first load.
+            native._LIB_PATH = build_native(build_dir).path
+            native._tried = False
     return native.available()
 
 
 def load_library(name: str, sources: Sequence[str]) -> BuiltLibrary:
     """Build (if needed) and load ``lib<name>-<hash>.so`` from ``sources``
-    (paths relative to the package directory)."""
+    (paths relative to the package directory).  Libraries of different
+    names build in parallel when called from several threads."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _libs:
             return _libs[name]
         paths = [os.path.join(PACKAGE_DIR, s) for s in sources]

@@ -35,3 +35,14 @@ def same_device(*tensors: torch.Tensor) -> torch.device:
     if len(devs) != 1:
         raise ValueError(f"tensors on mixed devices: {sorted(map(str, devs))}")
     return devs.pop()
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype, shape):
+    """Raise unless ``t`` has ``dtype`` and ``shape`` and is contiguous
+    (what a kernel's C interface takes)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,149 @@
+"""Single-card HTC Smith-Waterman engine: bucket -> fill and walk kernels
+-> decode.
+
+The port of ``acc_genomics_tpu/engine/sw_engine.py`` on its device route
+(the redesign of the reference's FalconSWFPGA_run dispatch gate):
+
+* pairs group by (bucket(reflen), bucket(altlen)) over
+  ``config.seq_buckets`` and launch in chunks of at most
+  ``config.max_batch`` pairs, fewer where a chunk's backtrack matrix would
+  pass ``BTRACK_BUDGET_BYTES``;
+* pairs with a sequence past the largest bucket run on the native host
+  engine, on a worker thread concurrent with the launches;
+* every chunk is launched before anything is fetched, and the packed
+  element buffers of all chunks come back in one D2H copy; the backtrack
+  matrices never leave the card;
+* pairs whose CIGAR overflows an element buffer rerun on the oracle.
+
+On ``device="cpu"`` the same route runs the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from acc_genomics_tpu_torch.build import ensure_native
+from acc_genomics_tpu_torch.device import resolve_device
+from acc_genomics_tpu_torch.ops.sw.batch import (
+    sw_align_batch_decode,
+    sw_align_batch_launch,
+)
+from acc_genomics_tpu_torch.shared import SWConfig, Timer, native, sw_align_oracle
+
+# Device bytes one chunk's int16 backtrack matrix may take: (rows + cols -
+# 1) x rows codes a pair, 0.41 MB at 320 x 320 and 9.4 MB at 1536 x 1536,
+# so a 1536-bucket chunk holds 455 pairs, not max_batch.
+BTRACK_BUDGET_BYTES = 4 << 30
+
+
+def chunk_pairs(rows: int, cols: int, max_batch: int) -> int:
+    """Pairs per launch in a (rows, cols) bucket."""
+    per_pair = 2 * rows * (rows + cols - 1)
+    return max(1, min(int(max_batch), BTRACK_BUDGET_BYTES // per_pair))
+
+
+class SWEngine:
+    """Aligns (ref, alt) pairs: [(cigar, offset)] per pair, exact."""
+
+    def __init__(self, config: SWConfig = SWConfig(), device="cuda"):
+        self.config = config
+        self.device = resolve_device(device)
+        if not ensure_native():
+            raise RuntimeError(
+                "the native host library (acc_genomics_tpu/native) is "
+                "unavailable: the host fallback needs it"
+            )
+        self.params = config.params()
+        self.stats = {"pairs": 0, "host_fallback": 0, "cells": 0}
+
+    def _bucket(self, n: int) -> Optional[int]:
+        for b in self.config.seq_buckets:
+            if n <= b:
+                return b
+        return None
+
+    def align(
+        self,
+        refs: Sequence[np.ndarray],
+        alts: Sequence[np.ndarray],
+        strategy: int,
+    ) -> List[Tuple[list, int]]:
+        """Batch alignment -> [(cigar, offset)] in input order."""
+        n = len(refs)
+        self.stats["pairs"] += n
+        out: List = [None] * n
+        groups = {}
+        host_idx = []
+        for k, (r, a) in enumerate(zip(refs, alts)):
+            br = self._bucket(len(r))
+            ba = self._bucket(len(a))
+            if br is None or ba is None:
+                host_idx.append(k)
+                continue
+            groups.setdefault((br, ba), []).append(k)
+
+        host_thread, host_err = None, []
+        if host_idx:
+            # the native host engine on a worker thread, concurrent with the
+            # launches below (the ctypes call releases the GIL)
+            self.stats["host_fallback"] += len(host_idx)
+
+            def host_work():
+                try:
+                    walked = native.sw_align_host(
+                        [refs[k] for k in host_idx], [alts[k] for k in host_idx],
+                        strategy, self.params,
+                        max_elems=max(self.config.max_seq_len, 1536),
+                    )
+                    for j, k in enumerate(host_idx):
+                        res = walked[j]
+                        if res is None:  # element overflow
+                            res = sw_align_oracle(
+                                refs[k], alts[k], strategy, params=self.params
+                            )
+                        out[k] = res
+                except BaseException as e:  # re-raised after join
+                    host_err.append(e)
+
+            host_thread = threading.Thread(target=host_work)
+            host_thread.start()
+
+        chunks = []
+        for (rows, cols), idxs in groups.items():
+            seg = chunk_pairs(rows, cols, self.config.max_batch)
+            chunks += [(rows, cols, idxs[lo : lo + seg])
+                       for lo in range(0, len(idxs), seg)]
+        with Timer("sw.device"):
+            pend = []
+            for rows, cols, idxs in chunks:
+                grefs = [refs[k] for k in idxs]
+                galts = [alts[k] for k in idxs]
+                launched = sw_align_batch_launch(
+                    grefs, galts, strategy, rows, cols, self.device, self.params
+                )
+                pend.append((idxs, grefs, galts, launched))
+                self.stats["cells"] += sum(len(r) * len(a) for r, a in zip(grefs, galts))
+            if pend:
+                allpacked = torch.cat([p[3].packed for p in pend], 1).cpu().numpy()
+                col = 0
+                for idxs, grefs, galts, _ in pend:
+                    walked = sw_align_batch_decode(
+                        allpacked[:, col : col + len(idxs)], grefs, galts,
+                        strategy, self.params,
+                    )
+                    col += len(idxs)
+                    for j, k in enumerate(idxs):
+                        out[k] = walked[j]
+        if host_thread is not None:
+            host_thread.join()
+            if host_err:
+                raise host_err[0]
+        return out
+
+    def align_one_ref(self, ref: np.ndarray, alts: Sequence[np.ndarray], strategy: int):
+        """SWPairwiseAlignmentMultiBatch analog: one ref vs many alts."""
+        return self.align([ref] * len(alts), alts, strategy)

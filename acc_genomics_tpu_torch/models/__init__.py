@@ -1,0 +1,5 @@
+from acc_genomics_tpu_torch.models.haplotype_caller import (  # noqa: F401
+    HaplotypeCallerCore,
+    HCEngines,
+    RegionResult,
+)

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from acc_genomics_tpu_torch import build
-from acc_genomics_tpu_torch.device import same_device
+from acc_genomics_tpu_torch.device import check_tensor, same_device
 from acc_genomics_tpu_torch.shared import BASE_N, HAP_PAD
 
 PAD_MASK = 16  # one-hot channel of padded hap columns (never matches)
@@ -183,15 +183,6 @@ def pairhmm_forward_from_quals_plain(
 # -- kernel wrappers --------------------------------------------------------
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _geometry(rs: torch.Tensor, hap_ext: torch.Tensor):
     if rs.dim() != 2 or hap_ext.dim() != 2:
         raise ValueError("rs must be (R, B) and hap_ext (R + H, B)")
@@ -233,10 +224,10 @@ def pairhmm_forward(
     names = ("p_mm", "p_gapm", "p_mx", "p_xx", "p_my", "p_yy", "em_match",
              "em_mis")
     for t, name in zip(args[:8], names):
-        _check(t, name, torch.float32, (rows, bsz))
-    _check(rs, "rs", torch.int32, (rows, bsz))
-    _check(hap_ext, "hap_ext", torch.int32, (rows + cols, bsz))
-    _check(y0, "y0", torch.float32, (bsz,))
+        check_tensor(t, name, torch.float32, (rows, bsz))
+    check_tensor(rs, "rs", torch.int32, (rows, bsz))
+    check_tensor(hap_ext, "hap_ext", torch.int32, (rows + cols, bsz))
+    check_tensor(y0, "y0", torch.float32, (bsz,))
     out = torch.empty(bsz, dtype=torch.float32, device=dev)
     lib = build_kernels().lib
     with torch.cuda.device(dev):
@@ -275,15 +266,15 @@ def pairhmm_forward_from_quals(
         raise ValueError(f"unsupported device {dev}")
     rows, cols, bsz = _geometry(rs, hap_ext)
     for t, name in zip(planes[:5], ("q", "i", "d", "c", "rs")):
-        _check(t, name, torch.uint8, (rows, bsz))
-    _check(hap_ext, "hap_ext", torch.uint8, (rows + cols, bsz))
-    _check(rslen, "rslen", torch.int32, (bsz,))
-    _check(haplen, "haplen", torch.int32, (bsz,))
+        check_tensor(t, name, torch.uint8, (rows, bsz))
+    check_tensor(hap_ext, "hap_ext", torch.uint8, (rows + cols, bsz))
+    check_tensor(rslen, "rslen", torch.int32, (bsz,))
+    check_tensor(haplen, "haplen", torch.int32, (bsz,))
     gather = expand == "gather"
     if gather:
         if ph2pr is None or m2m is None:
             raise ValueError("expand='gather' needs the ph2pr and m2m tables")
-        _check(ph2pr, "ph2pr", torch.float32, (128,))
+        check_tensor(ph2pr, "ph2pr", torch.float32, (128,))
         if m2m.dtype != torch.float32 or m2m.numel() < 128 * 129 // 2:
             raise ValueError("m2m must be float32 with >= 8256 entries")
         if not m2m.is_contiguous():

@@ -1,0 +1,86 @@
+"""One bucket of SW pairs: pack, launch the fill and the walk, decode.
+
+The port of the launch/decode split of the JAX package's
+``ops/sw/kernel.py`` (``sw_align_batch_launch`` / ``_decode``): the launch
+returns the packed element buffer still on the device, so a caller can
+launch many buckets and fetch all their buffers at once.  Pairs keep
+their input order (no length sort: every pair runs its own trip count).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from acc_genomics_tpu_torch.ops.sw.kernel import sw_fill, sw_walk
+from acc_genomics_tpu_torch.ops.sw.walker import decode_elements
+from acc_genomics_tpu_torch.shared import (
+    DEFAULT_SW_PARAMS,
+    SWParams,
+    sw_align_oracle,
+)
+
+PAD_CODE = 255  # past each sequence; the kernels never read it
+
+
+def pack_planes(seqs: Sequence[np.ndarray], width: int, out: np.ndarray) -> np.ndarray:
+    """Write ``seqs`` as the rows of the uint8 plane ``out`` (len(seqs),
+    width), padded with PAD_CODE; returns their int32 lengths.  One row
+    copy per sequence: a single gather over a 4096 x 320 plane, with its
+    index arrays, took about 7 times as long on the CPU."""
+    lens = np.fromiter((len(s) for s in seqs), np.int32, len(seqs))
+    if len(seqs) and int(lens.max()) > width:
+        raise ValueError(f"sequence of length {int(lens.max())} exceeds bucket {width}")
+    out.fill(PAD_CODE)
+    for row, s, n in zip(out, seqs, lens):
+        row[:n] = s
+    return lens
+
+
+@dataclasses.dataclass
+class Launched:
+    """A launched bucket: ``packed`` is the (SHIP_ELEMS + 2, B) int16
+    buffer on the device; ``staged`` is the host buffer its inputs were
+    uploaded from, kept alive until the caller has fetched."""
+
+    packed: torch.Tensor
+    staged: torch.Tensor
+
+
+def sw_align_batch_launch(
+    refs, alts, strategy: int, rows: int, cols: int, device: torch.device,
+    params: SWParams = DEFAULT_SW_PARAMS,
+) -> Launched:
+    """Pack one bucket into a staging buffer (pinned on CUDA), upload it
+    with one copy and launch the fill and the walk on the current stream,
+    without fetching."""
+    n = len(refs)
+    cuda = device.type == "cuda"
+    meta_at = -(-n * (rows + cols) // 16) * 16  # int32 lengths, aligned
+    staged = torch.empty(meta_at + 8 * n, dtype=torch.uint8, pin_memory=cuda)
+    hv = staged.numpy()
+    meta = hv[meta_at:].view(np.int32).reshape(2, n)
+    meta[0] = pack_planes(refs, rows, hv[: n * rows].reshape(n, rows))
+    meta[1] = pack_planes(alts, cols, hv[n * rows : n * (rows + cols)].reshape(n, cols))
+    dev = staged.to(device, non_blocking=True)
+    ref = dev[: n * rows].view(n, rows)
+    alt = dev[n * rows : n * (rows + cols)].view(n, cols)
+    lens = dev[meta_at:].view(torch.int32).view(2, n)
+    btrack, lastrow, altcol = sw_fill(ref, alt, lens[0], lens[1], strategy, params)
+    packed = sw_walk(btrack, lastrow, altcol, lens[0], lens[1], strategy)
+    return Launched(packed, staged)
+
+
+def sw_align_batch_decode(
+    packed_np: np.ndarray, refs, alts, strategy: int,
+    params: SWParams = DEFAULT_SW_PARAMS,
+) -> List[Tuple[list, int]]:
+    """Host half: decode a fetched packed buffer into per-pair (cigar,
+    offset), rerunning element-overflow pairs on the oracle."""
+    out, overflow = decode_elements(packed_np, len(refs))
+    for k in np.flatnonzero(overflow):
+        out[k] = sw_align_oracle(refs[k], alts[k], strategy, params=params)
+    return out

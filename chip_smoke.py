@@ -2,22 +2,29 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, checks
-it against its plain PyTorch version at the benchmark shapes and at the
-shapes the engine launches, drives the PairHMM engine's main path
-(compute_matrix_flat, compute_pairs_flat_stream) on a WES-shaped batch
-of 16,384 pairs, and checks the contract edges (reference corpus, fp64
-underflow recompute, host fallback).  Any failed check raises, so the
-exit code is non-zero.  The last line of standard output is one JSON
-object naming the device; the line before it lists each kernel of the
-main path with its launches, error and times.
+Builds the port's CUDA kernels from the sources in this checkout, all at
+once.  PairHMM: checks the forward kernel against its plain PyTorch
+version at the benchmark shapes and at the shapes the engine launches,
+drives the PairHMM engine's main path (compute_matrix_flat,
+compute_pairs_flat_stream) on a WES-shaped batch of 16,384 pairs, and
+checks the contract edges (reference corpus, fp64 underflow recompute,
+host fallback).  Smith-Waterman: checks the fill and walk kernels bit for
+bit against their plain versions at the SW benchmark shape (8192 pairs,
+four overhang strategies), drives SWEngine on it against the native host
+engine and the oracle, and checks its edges (ties, mixed buckets, host
+fallback, element overflow).  HaplotypeCaller: drives
+HaplotypeCallerCore on the port's two engines at 64 and 1024 regions.
+Any failed check raises, so the exit code is non-zero.  The last line of
+standard output is one JSON object naming the device; the line before it
+lists each kernel of the main paths with its launches, error and times.
 
-Needs a CUDA card and the native host library (built with make at first
-use).  Imports only the port, never JAX.
+Needs a CUDA card and the native host library (built with a C++ compiler
+at first use).  Imports only the port, never JAX.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -31,6 +38,13 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 CU_SOURCE = "acc_genomics_tpu_torch/ops/pairhmm/csrc/pairhmm_forward.cu"
 TPU_KERNEL = "acc_genomics_tpu/ops/pairhmm/kernel.py:79"
+SW_FILL_SOURCE = "acc_genomics_tpu_torch/ops/sw/csrc/sw_fill.cu"
+SW_FILL_TPU = "acc_genomics_tpu/ops/sw/kernel.py:57"
+SW_WALK_SOURCE = "acc_genomics_tpu_torch/ops/sw/csrc/sw_walk.cu"
+SW_WALK_TPU = "acc_genomics_tpu/ops/sw/walker.py:62"
+SW_BENCH_PAIRS = 8192  # bench.py bench_sw: one ref of 286 vs 8192 alts
+HC_SIZES = (64, 1024)  # regions: bench_hc's shape, and one full SW max_batch
+HC_REPEATS = 5
 
 # kernel vs plain on the card: every lane in raw fp32 within RAW_RTOL
 # (denormal lanes within RAW_ATOL, 1/1024 of the smallest normal fp32),
@@ -167,6 +181,275 @@ def oracle(tcs) -> np.ndarray:
                                            t["c"], t["hap"]) for t in tcs])
 
 
+def masked_max_abs(a, b, region, step: int = 512) -> int:
+    """Largest |a - b| where ``region`` holds, over slices of ``step``
+    pairs (the whole int32 difference would take gigabytes)."""
+    worst = 0
+    for lo in range(0, a.shape[0], step):
+        d = (a[lo:lo + step].int() - b[lo:lo + step].int()).abs()
+        worst = max(worst, int(d.masked_fill_(~region[lo:lo + step], 0).max()))
+    return worst
+
+
+def sw_bench_batch(dev):
+    """bench.py bench_sw's batch (seed 0, one ref of 286 vs 8192 alts) as
+    the engine cuts it: one 320 x 320 bucket in chunks of chunk_pairs."""
+    import torch
+
+    from acc_genomics_tpu_torch.engine.sw_engine import chunk_pairs
+    from acc_genomics_tpu_torch.ops.sw.batch import pack_planes
+    from acc_genomics_tpu_torch.shared import SWConfig, gen_sw_batch
+
+    ref, alts = gen_sw_batch(np.random.default_rng(0), SW_BENCH_PAIRS, ref_len=286)
+    cfg = SWConfig()
+    bucket = lambda n: next(b for b in cfg.seq_buckets if b >= n)
+    rows, cols = bucket(len(ref)), bucket(max(len(a) for a in alts))
+    check(rows == cols == 320 and bucket(min(len(a) for a in alts)) == 320,
+          f"bench SW bucket {rows} x {cols}")
+    seg = chunk_pairs(rows, cols, cfg.max_batch)
+    chunks = []
+    for lo in range(0, len(alts), seg):
+        part = alts[lo:lo + seg]
+        ref_p = np.empty((len(part), rows), np.uint8)
+        alt_p = np.empty((len(part), cols), np.uint8)
+        rl = pack_planes([ref] * len(part), rows, ref_p)
+        al = pack_planes(part, cols, alt_p)
+        chunks.append(tuple(torch.from_numpy(x).to(dev) for x in (ref_p, alt_p, rl, al)))
+    return ref, alts, chunks
+
+
+def sw_kernels_vs_plain(chunks, card: str):
+    """Fill and walk kernels against their plain versions on every pair of
+    the bench batch, inside each pair's region, in all four strategies;
+    then their times (strategy 0).  Returns (fill_err, fill_ms,
+    fill_plain_ms, walk_err, walk_ms, walk_plain_ms)."""
+    import torch
+
+    from acc_genomics_tpu_torch.ops.sw import kernel as SK
+
+    cells = sum(int((rl.long() * al.long()).sum()) for _, _, rl, al in chunks)
+    fill_err = walk_err = 0
+    for strategy in (0, 1, 2, 3):
+        for ref, alt, rl, al in chunks:
+            rows, cols = ref.shape[1], alt.shape[1]
+            got = SK.sw_fill(ref, alt, rl, al, strategy)
+            want = SK.sw_fill_plain(ref, alt, rl, al, strategy)
+            err = masked_max_abs(got[0], want[0], SK.btrack_region(rl, al, rows, cols))
+            in_row = torch.arange(cols, device=ref.device)[None, :] < al[:, None]
+            in_col = torch.arange(rows, device=ref.device)[None, :] < rl[:, None]
+            err = max(err, int(torch.where(in_row, got[1] - want[1], 0).abs().max()),
+                      int(torch.where(in_col, got[2] - want[2], 0).abs().max()))
+            fill_err = max(fill_err, err)
+            packed = SK.sw_walk(*got, rl, al, strategy)
+            packed_plain = SK.sw_walk_plain(*want, rl, al, strategy)
+            walk_err = max(walk_err, int((packed.int() - packed_plain.int()).abs().max()))
+            del got, want
+        say(f"sw bench strategy {strategy}: {len(chunks)} chunks of "
+            f"{[c[0].shape[0] for c in chunks]} pairs; fill max_abs_err={fill_err} "
+            f"walk max_abs_err={walk_err}")
+        check(fill_err == 0 and walk_err == 0,
+              f"SW kernels vs plain, strategy {strategy}: not bit-exact")
+
+    fills = [SK.sw_fill(*c, 0) for c in chunks]
+    fill_ms = cuda_time_ms(lambda: [SK.sw_fill(*c, 0) for c in chunks])
+    fill_plain_ms = cuda_time_ms(lambda: [SK.sw_fill_plain(*c, 0) for c in chunks],
+                                 repeats=3, warm=False)
+    walk = lambda fn: [fn(*f, c[2], c[3], 0) for f, c in zip(fills, chunks)]
+    walk_ms = cuda_time_ms(lambda: walk(SK.sw_walk))
+    walk_plain_ms = cuda_time_ms(lambda: walk(SK.sw_walk_plain), repeats=3, warm=False)
+    say(f"sw bench kernels, {cells} cells: sw_fill kernel_ms={fill_ms:.4f} "
+        f"plain_ms={fill_plain_ms:.4f} kernel_gcups={cells / (fill_ms * 1e-3) / 1e9:.3f}; "
+        f"sw_walk kernel_ms={walk_ms:.4f} plain_ms={walk_plain_ms:.4f} [{card}]")
+    return fill_err, fill_ms, fill_plain_ms, walk_err, walk_ms, walk_plain_ms
+
+
+def sw_engine_main_path(ref, alts, n_chunks: int, card: str) -> dict:
+    """SWEngine(device="cuda") on the bench batch, strategy 0: exact
+    against the native host engine on every pair and the oracle on 64;
+    median of 10 calls.  Returns the kernel launches of the timed calls."""
+    import torch
+
+    from acc_genomics_tpu_torch.engine.sw_engine import SWEngine
+    from acc_genomics_tpu_torch.ops.sw import kernel as SK
+    from acc_genomics_tpu_torch.shared import native, sw_align_oracle
+
+    refs = [ref] * len(alts)
+    eng = SWEngine(device="cuda")
+    first = eng.align(refs, alts, 0)  # warm-up (allocator, pinned pool)
+    torch.cuda.synchronize()
+    SK.LAUNCHES.clear()
+    times, results = [], []
+    for _ in range(E2E_REPEATS):
+        t0 = time.perf_counter()
+        results.append(eng.align(refs, alts, 0))
+        times.append(time.perf_counter() - t0)
+    launches = dict(SK.LAUNCHES)
+    cells = sum(len(ref) * len(a) for a in alts)
+    med = statistics.median(times)
+    say(f"SWEngine main path: {len(alts)} pairs, {cells} cells, {n_chunks} chunks a "
+        f"call; launches {launches} over {E2E_REPEATS} calls; e2e_s median={med:.5f} "
+        f"min={min(times):.5f} max={max(times):.5f}; e2e_gcups median="
+        f"{cells / med / 1e9:.3f} min={cells / max(times) / 1e9:.3f} "
+        f"max={cells / min(times) / 1e9:.3f} [{card}]")
+    check(launches.get("sw_fill") == launches.get("sw_walk") == E2E_REPEATS * n_chunks
+          and len(launches) == 2, f"SWEngine launches {launches}")
+    check(all(r == first for r in results), "repeated SWEngine calls differ")
+    check(first == native.sw_align_host(refs, alts, 0), "SWEngine vs native host")
+    sample = np.random.default_rng(4).choice(len(alts), 64, replace=False)
+    check(all(first[k] == sw_align_oracle(ref, alts[k], 0) for k in sample),
+          "SWEngine vs oracle")
+    say(f"SWEngine == native host on {len(alts)} pairs, == oracle on 64: ok "
+        f"(stats {eng.stats})")
+    return launches
+
+
+def sw_edges():
+    """Ties in all four strategies, mixed buckets with one pair past the
+    largest, and an element-overflow pair, on the card."""
+    from acc_genomics_tpu_torch.engine.sw_engine import SWEngine
+    from acc_genomics_tpu_torch.ops.sw import kernel as SK
+    from acc_genomics_tpu_torch.ops.sw.batch import sw_align_batch_launch
+    from acc_genomics_tpu_torch.shared import (
+        SWConfig,
+        gen_sw_batch,
+        native,
+        sw_align_oracle,
+    )
+    import torch
+
+    rng = np.random.default_rng(5)
+    per = np.tile(np.array([0, 1], np.uint8), 11)
+    ref1 = rng.integers(0, 4, 22).astype(np.uint8)
+    ref2 = rng.integers(0, 4, 12).astype(np.uint8)
+    ties = [(ref1, ref1.copy()), (np.zeros(18, np.uint8), np.zeros(22, np.uint8)),
+            (np.zeros(22, np.uint8), np.zeros(13, np.uint8)),
+            (per, np.tile(np.array([0, 1], np.uint8), 9)), (per, np.roll(per, 1)),
+            (ref2, np.concatenate([ref2, ref2])), (np.concatenate([ref2, ref2]), ref2)]
+    eng = SWEngine(device="cuda")
+    for strategy in (0, 1, 2, 3):
+        got = eng.align([r for r, _ in ties], [a for _, a in ties], strategy)
+        check(got == [sw_align_oracle(r, a, strategy) for r, a in ties],
+              f"tie-stress cases, strategy {strategy}")
+    say(f"SW ties: {len(ties)} cases x 4 strategies == oracle")
+
+    refs, alts = [], []
+    for ln in (30, 100, 150, 200, 300, 500, 700, 1000, 1400, 1600):
+        r, (a,) = gen_sw_batch(rng, 1, ref_len=ln)
+        refs.append(r)
+        alts.append(a)
+    eng = SWEngine(device="cuda")
+    buckets = {(eng._bucket(len(r)), eng._bucket(len(a))) for r, a in zip(refs, alts)}
+    n_dev = len({b for b in buckets if None not in b})
+    before = SK.LAUNCHES["sw_fill"]
+    got = eng.align(refs, alts, 0)
+    launched = SK.LAUNCHES["sw_fill"] - before
+    say(f"SW mixed buckets {sorted(buckets, key=str)}: launches={launched} "
+        f"host_fallback={eng.stats['host_fallback']}")
+    check(got == native.sw_align_host(refs, alts, 0), "mixed buckets vs native host")
+    check(eng.stats["host_fallback"] == 1 and launched == n_dev,
+          "one pair past 1536 on the host, one launch per device bucket")
+
+    ref = rng.integers(0, 4, 96).astype(np.uint8)
+    alt = []
+    for j, b in enumerate(ref):
+        alt += [b, (b + 1) % 4, (b + 2) % 4] if j % 2 == 0 else [b]
+    alt = np.asarray(alt, np.uint8)[:160]
+    want = sw_align_oracle(ref, alt, 0)
+    en = int(sw_align_batch_launch([ref], [alt], 0, 96, 192, torch.device("cuda")
+                                   ).packed[SK.SHIP_ELEMS, 0])
+    got = SWEngine(SWConfig(seq_buckets=(96, 192)), device="cuda").align([ref], [alt], 0)
+    say(f"SW element overflow: {len(want[0])} elements, walk count {en}")
+    check(en > SK.SHIP_ELEMS and got[0] == want, "element overflow rerun on the oracle")
+
+
+def hc_phases(card: str):
+    """HaplotypeCallerCore on the port's engines at bench_hc's shape (64
+    regions of gen_region(n_reads=24), seed 0) and at 1024 regions (4096
+    SW pairs, 98,304 PairHMM pairs): exact haplotype CIGARs against the
+    native host, sampled likelihoods against the fp64 oracle, best
+    haplotype recovery >= 0.55; regions/s as the median of 5 calls."""
+    import torch
+
+    from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
+    from acc_genomics_tpu_torch.engine.sw_engine import SWEngine
+    from acc_genomics_tpu_torch.io.synth import gen_region
+    from acc_genomics_tpu_torch.models import HaplotypeCallerCore, HCEngines
+    from acc_genomics_tpu_torch.ops.pairhmm import kernel as K
+    from acc_genomics_tpu_torch.ops.sw import kernel as SK
+    from acc_genomics_tpu_torch.shared import native, pairhmm_loglik_oracle
+
+    for n_regions in HC_SIZES:
+        rng = np.random.default_rng(0)
+        made = [gen_region(rng, n_reads=24) for _ in range(n_regions)]
+        regions = [m[:3] for m in made]
+        n_sw = sum(len(h) for _, h, _ in regions)
+        n_ph = sum(len(h) * len(r) for _, h, r in regions)
+        hc = HaplotypeCallerCore(HCEngines(SWEngine(device="cuda"),
+                                           PairHMMEngine(device="cuda")))
+        hc.process_regions(regions)  # warm-up
+        torch.cuda.synchronize()
+        hc.reset_anatomy()
+        K.LAUNCHES.clear()
+        SK.LAUNCHES.clear()
+        times = []
+        for _ in range(HC_REPEATS):
+            t0 = time.perf_counter()
+            results = hc.process_regions(regions)
+            times.append(time.perf_counter() - t0)
+        launches = {**K.LAUNCHES, **SK.LAUNCHES}
+        med = statistics.median(times)
+        anatomy = {k: round(v / HC_REPEATS, 6) for k, v in hc.anatomy.items()}
+        say(f"HC {n_regions} regions ({n_sw} SW pairs, {n_ph} PairHMM pairs): "
+            f"regions_per_s median={n_regions / med:.3f} min={n_regions / max(times):.3f} "
+            f"max={n_regions / min(times):.3f} (n={HC_REPEATS}); anatomy s per call "
+            f"{anatomy}; launches {launches} [{card}]")
+        check(launches.get("sw_fill", 0) > 0 and launches.get("sw_walk", 0) > 0
+              and launches.get("pairhmm_forward_from_quals", 0) > 0,
+              f"HC main path launches {launches}")
+
+        refs = [ref for ref, haps, _ in regions for _ in haps]
+        haps = [h for _, hs, _ in regions for h in hs]
+        got = [c for res in results for c in res.hap_cigars]
+        check(got == native.sw_align_host(refs, haps, hc.overhang_strategy),
+              f"HC {n_regions}: haplotype CIGARs vs native host")
+        worst = 0.0
+        pick = np.random.default_rng(6)
+        for k in pick.choice(n_regions, 4, replace=False):
+            _, hs, reads = regions[k]
+            for r_i in pick.choice(len(reads), 2, replace=False):
+                r = reads[r_i]
+                for h_i, h in enumerate(hs):
+                    want = pairhmm_loglik_oracle(r["rs"], r["q"], r["i"], r["d"], r["c"], h)
+                    worst = max(worst, abs(results[k].likelihoods[r_i, h_i] - want) / abs(want))
+        hits = sum(int((res.best_hap == np.asarray(m[3])).sum())
+                   for res, m in zip(results, made))
+        recovery = hits / sum(len(m[3]) for m in made)
+        say(f"HC {n_regions}: CIGARs == native host on {n_sw} haplotypes; 32 sampled "
+            f"likelihoods max_rel={worst:.3e}; best-hap recovery {recovery:.3f}")
+        check(worst < RTOL_ORACLE, f"HC {n_regions}: likelihoods vs oracle")
+        check(recovery >= 0.55, f"HC {n_regions}: recovery {recovery}")
+
+
+def sw_phases(card: str) -> list:
+    """Phases 6-8; returns the kernels-line entries of sw_fill and sw_walk."""
+    import torch
+
+    ref, alts, chunks = sw_bench_batch(torch.device("cuda", 0))
+    fill_err, fill_ms, fill_plain_ms, walk_err, walk_ms, walk_plain_ms = (
+        sw_kernels_vs_plain(chunks, card))
+    launches = sw_engine_main_path(ref, alts, len(chunks), card)
+    del chunks
+    sw_edges()
+    return [
+        {"name": "sw_fill", "route": "cuda", "source": SW_FILL_SOURCE,
+         "replaces": SW_FILL_TPU, "launches": launches.get("sw_fill", 0),
+         "max_abs_err": fill_err, "ms": fill_ms, "plain_ms": fill_plain_ms},
+        {"name": "sw_walk", "route": "cuda", "source": SW_WALK_SOURCE,
+         "replaces": SW_WALK_TPU, "launches": launches.get("sw_walk", 0),
+         "max_abs_err": walk_err, "ms": walk_ms, "plain_ms": walk_plain_ms},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -178,6 +461,7 @@ def main() -> int:
     from acc_genomics_tpu_torch.build import ensure_native, find_nvcc
     from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
     from acc_genomics_tpu_torch.ops.pairhmm import kernel as K
+    from acc_genomics_tpu_torch.ops.sw import kernel as SK
     from acc_genomics_tpu_torch.ops.pairhmm.convert import (
         batch_to_torch,
         context_tables,
@@ -209,14 +493,18 @@ def main() -> int:
     say(f"native host library available: {native_ok}")
     check(native_ok, "native host library unavailable: the engine needs it")
 
-    # -- 2. build ------------------------------------------------------------
+    # -- 2. build: one nvcc per source, all started together ------------------
     t0 = time.perf_counter()
-    built = K.build_kernels()
-    say(f"build: {built.path} built={built.built} nvcc_s={built.seconds:.2f} "
-        f"wall_s={time.perf_counter() - t0:.2f}")
-    for line in built.log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            say(f"  ptxas: {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        futures = [pool.submit(K.build_kernels), pool.submit(SK.build_kernels)]
+        libs = [futures[0].result(), *futures[1].result().values()]
+    wall = time.perf_counter() - t0
+    for built in libs:
+        say(f"build: {built.path} built={built.built} nvcc_s={built.seconds:.2f}")
+        for line in built.log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                say(f"  ptxas: {line.strip()}")
+    say(f"build wall_s={wall:.2f}")
 
     dev = torch.device("cuda", 0)
     ctx = PairHMMContext(np.float32)
@@ -412,11 +700,17 @@ def main() -> int:
     check(eng.stats.get("host_fallback", 0) == 1, "one oversize pair on the host")
     check(rel.max() < RTOL_ORACLE, "oversize batch vs oracle")
 
-    say(json.dumps({"kernels": [{
+    pairhmm_entry = {
         "name": "pairhmm_forward_from_quals", "route": "cuda", "source": CU_SOURCE,
         "replaces": TPU_KERNEL, "launches": launches, "max_abs_err": eng_err,
         "ms": k_ms, "plain_ms": p_ms,
-    }]}))
+    }
+
+    # -- 6-9. Smith-Waterman and HaplotypeCaller ---------------------------------
+    sw_entries = sw_phases(card)
+    hc_phases(card)
+
+    say(json.dumps({"kernels": [pairhmm_entry, *sw_entries]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,21 +5,27 @@ installed (the repository's conftest imports it):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
-Without a card every test skips.  Tolerances: the kernel against its
-plain PyTorch version in log space rtol 1e-5 (the kernel contracts
+Without a card every test skips.  Tolerances: the PairHMM kernel against
+its plain PyTorch version in log space rtol 1e-5 (the kernel contracts
 multiply-adds into fmas and sums in another order); inert lanes exactly 0.
+The SW kernels are integer: bit-exact against their plain versions, and
+the SW engine exact against the native host engine.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from acc_genomics_tpu import native
 from acc_genomics_tpu.config import PairHMMConfig
-from acc_genomics_tpu.io.synth import gen_pairhmm_input, gen_pairhmm_pairs
+from acc_genomics_tpu.io.synth import gen_pairhmm_input, gen_pairhmm_pairs, gen_sw_batch
 from acc_genomics_tpu.ops.pairhmm.context import PairHMMContext
 from acc_genomics_tpu.ops.pairhmm.pack import pack_pairhmm_batch, pack_pairhmm_quals
 from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
+from acc_genomics_tpu_torch.engine.sw_engine import SWEngine
 from acc_genomics_tpu_torch.ops.pairhmm import kernel as K
+from acc_genomics_tpu_torch.ops.sw import kernel as SK
+from acc_genomics_tpu_torch.ops.sw.batch import pack_planes
 from acc_genomics_tpu_torch.ops.pairhmm.convert import (
     batch_to_torch,
     context_tables,
@@ -107,3 +113,60 @@ def test_cuda_engine_matches_cpu_engine(cuda):
     assert K.LAUNCHES["pairhmm_forward_from_quals"] - before == got_eng.stats["device_calls"]
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     assert got_eng.stats == want_eng.stats
+
+
+def _sw_planes(rng, n, ref_len, rows, cols, cuda):
+    ref, alts = gen_sw_batch(rng, n, ref_len=ref_len)
+    refs = [ref] * n
+    refs[-1] = rng.integers(0, 4, ref_len // 3).astype(np.uint8)  # short ref
+    ref_p = np.empty((n, rows), np.uint8)
+    alt_p = np.empty((n, cols), np.uint8)
+    rl = pack_planes(refs, rows, ref_p)
+    al = pack_planes(alts, cols, alt_p)
+    return [torch.from_numpy(x).to(cuda) for x in (ref_p, alt_p, rl, al)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bucket", [(64, 56), (1536, 1450)])
+def test_cuda_sw_kernels_match_plain(cuda, bucket):
+    """Bit-exact in each pair's region, all four strategies; 1536 rows
+    run two rows per thread (a block has at most 1024 threads)."""
+    rows, ref_len = bucket
+    rng = np.random.default_rng(2)
+    ref, alt, rl, al = _sw_planes(rng, 6, ref_len, rows, rows, cuda)
+    region = SK.btrack_region(rl, al, rows, rows)
+    for strategy in (0, 1, 2, 3):
+        before = dict(SK.LAUNCHES)
+        got = SK.sw_fill(ref, alt, rl, al, strategy)
+        want = SK.sw_fill_plain(ref, alt, rl, al, strategy)
+        packed = SK.sw_walk(*got, rl, al, strategy)
+        torch.cuda.synchronize()
+        assert SK.LAUNCHES["sw_fill"] == before.get("sw_fill", 0) + 1
+        assert SK.LAUNCHES["sw_walk"] == before.get("sw_walk", 0) + 1
+        assert not ((got[0] != want[0]) & region).any()
+        for b in range(len(rl)):
+            assert torch.equal(got[1][b, : al[b]], want[1][b, : al[b]])
+            assert torch.equal(got[2][b, : rl[b]], want[2][b, : rl[b]])
+        assert torch.equal(packed, SK.sw_walk_plain(*want, rl, al, strategy))
+
+
+@pytest.mark.gpu
+def test_cuda_sw_engine_matches_native_host(cuda):
+    rng = np.random.default_rng(3)
+    refs, alts = [], []
+    for ln in (40, 100, 200, 300, 90, 250):
+        r, a = gen_sw_batch(rng, 3, ref_len=ln)
+        refs += [r] * 3
+        alts += a
+    big, (big_alt,) = gen_sw_batch(rng, 1, ref_len=1600)  # past 1536: host
+    refs.append(big)
+    alts.append(big_alt)
+    eng = SWEngine(device="cuda")
+    n_buckets = len({(eng._bucket(len(r)), eng._bucket(len(a)))
+                     for r, a in zip(refs[:-1], alts[:-1])})
+    before = SK.LAUNCHES["sw_walk"]
+    for strategy in (0, 1, 2, 3):
+        got = eng.align(refs, alts, strategy)
+        assert got == native.sw_align_host(refs, alts, strategy)
+    assert eng.stats["host_fallback"] == 4
+    assert SK.LAUNCHES["sw_walk"] - before == 4 * n_buckets  # one chunk each

@@ -37,6 +37,14 @@ def test_port_imports_without_jax():
         "acc_genomics_tpu_torch.ops.pairhmm.convert",
         "acc_genomics_tpu_torch.engine",
         "acc_genomics_tpu_torch.engine.pairhmm_engine",
+        "acc_genomics_tpu_torch.ops.sw",
+        "acc_genomics_tpu_torch.ops.sw.kernel",
+        "acc_genomics_tpu_torch.ops.sw.walker",
+        "acc_genomics_tpu_torch.ops.sw.batch",
+        "acc_genomics_tpu_torch.engine.sw_engine",
+        "acc_genomics_tpu_torch.models",
+        "acc_genomics_tpu_torch.models.haplotype_caller",
+        "acc_genomics_tpu_torch.io.synth",
     ]
     code = "import sys\n" + "".join(f"import {m}\n" for m in mods) + (
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))"

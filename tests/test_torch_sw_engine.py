@@ -1,0 +1,125 @@
+"""The port's SWEngine against the JAX SWEngine on the CPU.
+
+The port runs on ``device="cpu"`` (the kernels' plain PyTorch versions on
+the engine's own route: buckets, chunks, one fetch, decode, oracle rerun
+of element overflows, concurrent native host fallback); the JAX engine
+runs its XLA fill and native walk (``use_pallas=False``).  CIGARs and
+offsets are exact and the ``stats`` counters equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from acc_genomics_tpu.config import SWConfig
+from acc_genomics_tpu.engine.sw_engine import SWEngine as JaxEngine
+from acc_genomics_tpu.io.synth import gen_sw_batch
+from acc_genomics_tpu.ops.sw.reference import sw_align_oracle
+from acc_genomics_tpu_torch.engine import sw_engine as engine_module
+from acc_genomics_tpu_torch.engine.sw_engine import SWEngine, chunk_pairs
+from acc_genomics_tpu_torch.ops.sw import kernel as K
+
+
+def _fallback_case(rng):
+    """test_engines.py's case: six pairs in the buckets, one past them."""
+    ref, alts = gen_sw_batch(rng, 6, ref_len=100)
+    big_ref, (big_alt,) = gen_sw_batch(rng, 1, ref_len=200)
+    return [ref] * 6 + [big_ref], alts + [big_alt], SWConfig(seq_buckets=(64, 128))
+
+
+def _mixed_buckets(rng):
+    refs, alts = [], []
+    for ln in (20, 50, 60, 90, 120, 40, 70):
+        r, (a,) = gen_sw_batch(rng, 1, ref_len=ln)
+        refs.append(r)
+        alts.append(a)
+    # small max_batch: one bucket splits into several chunks
+    return refs, alts, SWConfig(seq_buckets=(64, 128), max_batch=2)
+
+
+def _overflow(rng):
+    ref = rng.integers(0, 4, 96).astype(np.uint8)
+    alt = []
+    for j, b in enumerate(ref):
+        alt.append(b)
+        if j % 2 == 0:
+            alt.append((b + 1) % 4)
+            alt.append((b + 2) % 4)
+    r2, (a2,) = gen_sw_batch(rng, 1, ref_len=90)
+    return [ref, r2], [np.asarray(alt, np.uint8)[:160], a2], SWConfig(seq_buckets=(96, 192))
+
+
+CASES = {"host_fallback": _fallback_case, "mixed_buckets_chunked": _mixed_buckets,
+         "element_overflow": _overflow}
+
+
+@pytest.mark.parametrize("strategy", [0, 1, 2, 3])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_align_matches_jax_engine(case, strategy, rng):
+    refs, alts, cfg = CASES[case](rng)
+    port = SWEngine(cfg, device="cpu")
+    jax_eng = JaxEngine(cfg, use_pallas=False)
+    got = port.align(refs, alts, strategy)
+    assert got == jax_eng.align(refs, alts, strategy)
+    assert port.stats == jax_eng.stats
+    for r, a, res in zip(refs, alts, got):
+        assert res == sw_align_oracle(r, a, strategy)
+    if case == "host_fallback":
+        assert port.stats["host_fallback"] == 1
+
+
+def test_chunks_launch_before_one_fetch(monkeypatch, rng):
+    refs, alts, cfg = _mixed_buckets(rng)
+    launched, fetched = [], []
+    real_launch = engine_module.sw_align_batch_launch
+    real_decode = engine_module.sw_align_batch_decode
+
+    def launch(*a, **kw):
+        assert not fetched, "a launch after the fetch"
+        launched.append(len(a[0]))
+        return real_launch(*a, **kw)
+
+    def decode(packed, *a, **kw):
+        fetched.append(packed.shape[1])
+        return real_decode(packed, *a, **kw)
+
+    monkeypatch.setattr(engine_module, "sw_align_batch_launch", launch)
+    monkeypatch.setattr(engine_module, "sw_align_batch_decode", decode)
+    eng = SWEngine(cfg, device="cpu")
+    got = eng.align(refs, alts, 0)
+    assert launched == fetched and max(launched) == 2 and sum(launched) == len(refs)
+    assert got == [sw_align_oracle(r, a, 0) for r, a in zip(refs, alts)]
+
+
+def test_align_one_ref_and_empty(rng):
+    ref, alts = gen_sw_batch(rng, 5, ref_len=60)
+    port = SWEngine(SWConfig(seq_buckets=(64,)), device="cpu")
+    jax_eng = JaxEngine(SWConfig(seq_buckets=(64,)), use_pallas=False)
+    assert port.align_one_ref(ref, alts, 2) == jax_eng.align_one_ref(ref, alts, 2)
+    assert port.align([], [], 0) == []
+    assert port.stats == jax_eng.stats
+
+
+def test_chunk_budget():
+    """A chunk's btrack stays under the byte budget; results do not depend
+    on the split (test_align_matches_jax_engine[mixed_buckets_chunked])."""
+    assert chunk_pairs(320, 320, 4096) == 4096
+    assert chunk_pairs(1536, 1536, 4096) == engine_module.BTRACK_BUDGET_BYTES // (
+        2 * 1536 * 3071) == 455
+    assert chunk_pairs(64, 64, 4096) == 4096
+
+
+def test_engine_raises_without_native_or_card(monkeypatch):
+    monkeypatch.setattr(engine_module, "ensure_native", lambda: False)
+    with pytest.raises(RuntimeError, match="native"):
+        SWEngine(device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        SWEngine(device="cuda")
+
+
+def test_cpu_engine_never_launches(rng):
+    ref, alts = gen_sw_batch(rng, 4, ref_len=50)
+    before = dict(K.LAUNCHES)
+    SWEngine(SWConfig(seq_buckets=(64,)), device="cpu").align_one_ref(ref, alts, 0)
+    assert dict(K.LAUNCHES) == before

@@ -19,9 +19,18 @@ Layout:
   ops/pairhmm/     forward kernel wrappers + plain twins, state conversion
   ops/sw/          SW fill and walk kernel wrappers + plain twins, decode,
                    one-bucket launch
+  ops/extend/      banded seed-extension kernel wrapper + plain twin
+  ops/smem/        SMEM kernel wrapper + plain twin, the FM-index probe
+                   table (DeviceIndex)
   engine/          bucketing, PairHMMEngine (pack -> kernel -> epilogue),
-                   SWEngine (bucket -> fill + walk -> one fetch -> decode)
-  models/          HaplotypeCallerCore on the two engines
+                   SWEngine (bucket -> fill + walk -> one fetch -> decode),
+                   ExtendEngine (left launches -> right launches with h0
+                   from the left scores on the card -> one fetch ->
+                   clip resolution), SmemEngine (resident probe table ->
+                   batches -> counts fetch -> live-interval fetch), the
+                   time-major packer
+  models/          HaplotypeCallerCore on SW + PairHMM; BwaMemSeeding on
+                   SMEM + extension
   io/synth.py      synthetic active regions (gen_region)
 """
 

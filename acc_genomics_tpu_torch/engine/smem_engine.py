@@ -1,0 +1,217 @@
+"""Single-card SMEM engine: the FM-index probe table resident on the card,
+batched 3-pass collection.
+
+The port of ``acc_genomics_tpu/engine/smem_engine.py`` on its single-
+device route:
+
+* the probe table goes to the card once, at construction;
+* reads group by length bucket (``config.read_buckets`` up to
+  ``config.seq_length``) and launch in batches of at most
+  ``config.batch_size`` reads, one thread a read;
+* every batch is launched before anything is fetched; then one small D2H
+  copy brings every read's count, flag and probe count, and one more
+  brings exactly the live intervals, gathered on the card; with no
+  interval anywhere nothing is gathered or copied;
+* reads past ``seq_length`` and reads the kernel flags (a chain or the
+  output past its cap) rerun on the native host engine, on a worker
+  thread concurrent with the device work (the flagged ones as soon as the
+  counts arrive).
+
+The TPU engine's multi-read lanes, 2-bit read pool and ragged-gather
+bucketing exist because of lockstep lanes and a slow link; the port has
+neither.  On ``device="cpu"`` the same route runs the kernel's plain
+version.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import time
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from acc_genomics_tpu_torch.build import ensure_native
+from acc_genomics_tpu_torch.device import resolve_device
+from acc_genomics_tpu_torch.engine.packing import pack_tm
+from acc_genomics_tpu_torch.ops.smem.kernel import smem_collect
+from acc_genomics_tpu_torch.ops.smem.table import DeviceIndex
+from acc_genomics_tpu_torch.shared import (
+    FMIndex,
+    SmemConfig,
+    Timer,
+    mem_collect_intv_oracle,
+    native,
+)
+
+def split_dicts(flat: np.ndarray, counts: np.ndarray) -> List[List[dict]]:
+    """(tot, 5) intervals, read-major, and per-read counts -> per-read
+    lists of interval dicts (one ``tolist`` for the whole batch)."""
+    ivs = [{"x0": a, "x1": b, "s": c, "start": d, "end": e}
+           for a, b, c, d, e in flat.tolist()]
+    out, o = [], 0
+    for c in counts.tolist():
+        out.append(ivs[o:o + c])
+        o += c
+    return out
+
+
+class SmemEngine:
+    """3-pass SMEM intervals per read, exact and in the oracle's order."""
+
+    def __init__(self, fm: FMIndex, config: SmemConfig = SmemConfig(), device="cuda"):
+        self.fm = fm
+        self.config = config
+        self.device = resolve_device(device)
+        if not ensure_native():
+            raise RuntimeError(
+                "the native host library (acc_genomics_tpu/native) is "
+                "unavailable: the host reruns need it"
+            )
+        with Timer("smem.index_upload"):
+            self.index = DeviceIndex.build(fm, self.device)
+        self.params = config.params()
+        # probe_iters: FM-index extensions taken on the card (two occ
+        # probes each), summed over reads
+        self.stats = {"reads": 0, "overflow_reruns": 0, "probe_iters": 0}
+        # pack = host plane fill, launch = H2D + launches, wait = the
+        # counts' D2H (it waits for the kernels), fetch = the live
+        # intervals' gather and D2H
+        self.anatomy = dict(pack_s=0.0, launch_s=0.0, wait_s=0.0, fetch_s=0.0,
+                            h2d_bytes=0, d2h_bytes=0)
+
+    def reset_anatomy(self):
+        for k in self.anatomy:
+            self.anatomy[k] = 0.0 if k.endswith("_s") else 0
+
+    def _buckets(self) -> Tuple[int, ...]:
+        """The read buckets below ``seq_length``, then ``seq_length`` itself
+        (so every read up to it has a bucket)."""
+        seq_len = self.config.seq_length
+        return tuple(b for b in sorted(self.config.read_buckets) if b < seq_len) + (seq_len,)
+
+    def _launch(self, seq_tm: np.ndarray, lens: np.ndarray):
+        """Stage one batch in one pinned buffer (lengths, then the (L, n)
+        plane), upload it and launch the kernel; nothing is fetched."""
+        L, n = seq_tm.shape
+        t0 = time.perf_counter()
+        staged = torch.empty(4 * n + L * n, dtype=torch.uint8,
+                             pin_memory=self.device.type == "cuda")
+        hv = staged.numpy()
+        hv[: 4 * n].view(np.int32)[:] = lens
+        hv[4 * n:] = seq_tm.reshape(-1)
+        t1 = time.perf_counter()
+        self.anatomy["pack_s"] += t1 - t0
+        dev = staged.to(self.device, non_blocking=True)
+        self.anatomy["h2d_bytes"] += staged.numel()
+        out = smem_collect(self.index, dev[4 * n:].view(L, n),
+                           dev[: 4 * n].view(torch.int32), self.params)
+        self.anatomy["launch_s"] += time.perf_counter() - t1
+        return out
+
+    def _run(self, batches: Sequence[Tuple[np.ndarray, np.ndarray]]):
+        """Launch every (seq_tm, lens) batch, then fetch: (flat (tot, 5)
+        int32 intervals read-major over all batches, counts (N,), flags
+        (N,) bool), reads in batch order.  Flagged reads count 0."""
+        launched = [self._launch(seq, lens) for seq, lens in batches]
+        if not launched:
+            return np.zeros((0, 5), np.int32), np.zeros(0, np.int64), np.zeros(0, bool)
+        t0 = time.perf_counter()
+        counts_dev = torch.cat([torch.stack(o[1:]) for o in launched], 1)
+        counts = counts_dev.cpu().numpy()
+        t1 = time.perf_counter()
+        self.anatomy["wait_s"] += t1 - t0
+        self.anatomy["d2h_bytes"] += counts.nbytes
+        self.stats["probe_iters"] += int(counts[2].sum(dtype=np.int64))
+        flags = counts[1] != 0
+        live = np.where(flags, 0, counts[0]).astype(np.int64)
+        tot = int(live.sum())
+        flat = np.zeros((0, 5), np.int32)
+        if tot:
+            parts, col = [], 0
+            for mem, mem_n, flag, _ in launched:
+                bsz = mem.shape[2]
+                nn = torch.where(flag != 0, 0, mem_n)
+                used = int(live[col: col + bsz].max(initial=0))
+                col += bsz
+                if used:
+                    rows = torch.arange(used, device=mem.device)[None, :]
+                    parts.append(mem[:, :used].permute(2, 1, 0)[rows < nn[:, None]])
+            flat = torch.cat(parts).cpu().numpy()
+            self.anatomy["d2h_bytes"] += flat.nbytes
+        self.anatomy["fetch_s"] += time.perf_counter() - t1
+        return flat, live, flags
+
+    def _host(self, reads: Sequence[np.ndarray]) -> List[List[dict]]:
+        res = native.smem_collect_host(self.fm, list(reads), self.params)
+        # None: a read with more intervals than the host buffer holds
+        return [r if r is not None else mem_collect_intv_oracle(self.fm, rd, self.params)
+                for r, rd in zip(res, reads)]
+
+    def collect(self, reads: Sequence[np.ndarray]) -> List[List[dict]]:
+        """3-pass SMEM intervals of each read, as interval dicts."""
+        self.stats["reads"] += len(reads)
+        seq_len = self.config.seq_length
+        buckets = self._buckets()
+        out: List = [None] * len(reads)
+        lens = np.fromiter((len(r) for r in reads), np.int64, len(reads))
+        host_idx = np.flatnonzero(lens > seq_len).tolist()
+        which = np.searchsorted(buckets, lens)  # the first bucket >= len
+        groups = {buckets[b]: np.flatnonzero(which == b).tolist()
+                  for b in np.unique(which[lens <= seq_len])}
+
+        def host_work(idx):
+            for k, res in zip(idx, self._host([reads[k] for k in idx])):
+                out[k] = res
+
+        # host reruns on one worker thread beside the device work (the
+        # ctypes call releases the GIL)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            futures = [pool.submit(host_work, host_idx)] if host_idx else []
+            seg = max(int(self.config.batch_size), 1)
+            order, batches = [], []
+            t0 = time.perf_counter()
+            for bucket, idxs in groups.items():
+                for lo in range(0, len(idxs), seg):
+                    part = idxs[lo:lo + seg]
+                    order += part
+                    batches.append(pack_tm([reads[k] for k in part], bucket, len(part)))
+            self.anatomy["pack_s"] += time.perf_counter() - t0
+            with Timer("smem.device"):
+                flat, live, flags = self._run(batches)
+            rerun = [k for k, f in zip(order, flags) if f]
+            if rerun:
+                self.stats["overflow_reruns"] += len(rerun)
+                futures.append(pool.submit(host_work, rerun))
+            for k, f, ivs in zip(order, flags, split_dicts(flat, live)):
+                if not f:
+                    out[k] = ivs
+            with Timer("smem.host_join"):
+                for f in futures:
+                    f.result()  # re-raises a host error
+        return out
+
+    def collect_arrays(self, seq_tm: np.ndarray, lens: np.ndarray):
+        """Raw-array collection for device pipelines: seq_tm (L, B) uint8
+        codes, lens (B,).  Returns (mem (5, used, B) int32 [x0, x1, s,
+        start, end], mem_n (B,), overflow (B,) bool), used the largest
+        count.  Flagged reads (``overflow``) carry no intervals here;
+        callers route them through the host path."""
+        seq_tm = np.asarray(seq_tm, np.uint8)
+        lens = np.asarray(lens, np.int32)
+        bsz = seq_tm.shape[1]
+        self.stats["reads"] += bsz
+        seg = max(int(self.config.batch_size), 1)
+        with Timer("smem.device"):
+            flat, live, flags = self._run(
+                [(np.ascontiguousarray(seq_tm[:, lo:lo + seg]), lens[lo:lo + seg])
+                 for lo in range(0, bsz, seg)])
+        self.stats["overflow_reruns"] += int(flags.sum())
+        used = int(live.max(initial=0))
+        mem = np.zeros((5, used, bsz), np.int32)
+        if len(flat):
+            rid = np.repeat(np.arange(bsz), live)
+            row = np.arange(len(flat)) - np.repeat(np.cumsum(live) - live, live)
+            mem[:, row, rid] = flat.T
+        return mem, live.astype(np.int32), flags

@@ -14,6 +14,15 @@ four overhang strategies), drives SWEngine on it against the native host
 engine and the oracle, and checks its edges (ties, mixed buckets, host
 fallback, element overflow).  HaplotypeCaller: drives
 HaplotypeCallerCore on the port's two engines at 64 and 1024 regions.
+BWA-MEM: checks the seed-extension kernel bit for bit against its plain
+version at the extension benchmark's shape and on three edge batches,
+drives ExtendEngine on 4096 seeds against the native host engine and the
+oracle (with its host fallback, degenerate seeds and the BWA-SW record
+fixture); builds a 100 Mbp FM-index, checks the SMEM kernel against its
+plain version on 65,536 reads of 101 bp, drives SmemEngine on them
+against the native host engine and the oracle (with its edges); then
+drives BwaMemSeeding on the two engines over 2048 reads against the same
+composition over the native host engines and the oracle chain.
 Any failed check raises, so the exit code is non-zero.  The last line of
 standard output is one JSON object naming the device; the line before it
 lists each kernel of the main paths with its launches, error and times.
@@ -42,6 +51,14 @@ SW_FILL_SOURCE = "acc_genomics_tpu_torch/ops/sw/csrc/sw_fill.cu"
 SW_FILL_TPU = "acc_genomics_tpu/ops/sw/kernel.py:57"
 SW_WALK_SOURCE = "acc_genomics_tpu_torch/ops/sw/csrc/sw_walk.cu"
 SW_WALK_TPU = "acc_genomics_tpu/ops/sw/walker.py:62"
+EXTEND_SOURCE = "acc_genomics_tpu_torch/ops/extend/csrc/sw_extend.cu"
+EXTEND_TPU = "acc_genomics_tpu/ops/extend/kernel.py:49"
+SMEM_SOURCE = "acc_genomics_tpu_torch/ops/smem/csrc/smem_collect.cu"
+SMEM_TPU = "acc_genomics_tpu/ops/smem/machine.py:267"
+SMEM_GENOME = 100_000_000  # bases: drivers/smem_driver.py's genome scale
+SMEM_READS = 65536  # bench_smem's lane count, reads of 101
+EXTEND_SEEDS = 4096  # bench_extend_engine's seeds
+BWA_READS = 2048  # bench_bwamem's reads (max_occ 4, flank 100)
 SW_BENCH_PAIRS = 8192  # bench.py bench_sw: one ref of 286 vs 8192 alts
 HC_SIZES = (64, 1024)  # regions: bench_hc's shape, and one full SW max_batch
 HC_REPEATS = 5
@@ -450,7 +467,373 @@ def sw_phases(card: str) -> list:
     ]
 
 
+def extend_batches(dev):
+    """Phase 10's batches as (name, q (Q, B), t (T, B), qlen, tlen, h0)
+    on the card: bench_extend's (seed 0, 2048 tasks, Q 128, T 256, qlen
+    101, tlen 160, h0 25), a batch where round 2 runs (an 80-base
+    insertion after 20 query bases: the first round's best cell is 80 >=
+    3/4 of the band off the diagonal), the bench batch with 5% ambiguous
+    bases, and 512 tasks at the caps (qlen 256, tlen 1024).  The round-2
+    batch starts at h0 100, enough to cross the 86-point gap."""
+    import torch
+
+    def on(name, q, t, ql, tl, h0):
+        return (name, *(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                        for x in (q.astype(np.uint8), t.astype(np.uint8), ql, tl, h0)))
+
+    rng = np.random.default_rng(0)
+    bsz, qmax, tmax = 2048, 128, 256
+    q = rng.integers(0, 4, (qmax, bsz))
+    t = rng.integers(0, 4, (tmax, bsz))
+    t[:qmax] = np.where(rng.random((qmax, bsz)) < 0.95, q, t[:qmax])
+    full = lambda v: np.full(bsz, v, np.int32)
+    out = [on("bench", q, t, full(101), full(160), full(25))]
+
+    rng = np.random.default_rng(1)
+    q2 = rng.integers(0, 4, (256, bsz))
+    t2 = np.concatenate([q2[:20], rng.integers(0, 4, (80, bsz)), q2[20:], q2[:156]])
+    out.append(on("round2", q2, t2, full(200), full(280), full(100)))
+
+    amb_q, amb_t = q.copy(), t.copy()
+    amb_q[rng.random(q.shape) < 0.05] = 4
+    amb_t[rng.random(t.shape) < 0.05] = 4
+    out.append(on("ambiguous", amb_q, amb_t, full(101), full(160), full(25)))
+
+    n = 512
+    q4 = rng.integers(0, 4, (256, n))
+    t4 = rng.integers(0, 4, (1024, n))
+    t4[:256] = np.where(rng.random((256, n)) < 0.97, q4, t4[:256])
+    out.append(on("caps", q4, t4, np.full(n, 256, np.int32), np.full(n, 1024, np.int32),
+                  np.full(n, 19, np.int32)))
+    return out
+
+
+def extend_bench_seeds(n: int = EXTEND_SEEDS):
+    """bench_extend_engine's seeds: seed 0, a 20 kbp genome, reads of 101
+    with 4% errors, a planted 19-24 base seed, 150-base flanks."""
+    rng = np.random.default_rng(0)
+    genome = rng.integers(0, 4, 20_000).astype(np.uint8)
+    seeds = []
+    for _ in range(n):
+        pos = int(rng.integers(200, len(genome) - 400))
+        read = genome[pos: pos + 101].copy()
+        err = rng.random(101) < 0.04
+        read[err] = (read[err] + rng.integers(1, 4, err.sum())) % 4
+        qbeg = int(rng.integers(5, 101 - 30))
+        slen = int(rng.integers(19, 25))
+        read[qbeg: qbeg + slen] = genome[pos + qbeg: pos + qbeg + slen]
+        seeds.append(dict(read=read, rseq=genome[pos - 150: pos + 101 + 150],
+                          qbeg=qbeg, rbeg_off=150 + qbeg, len=slen))
+    return genome, seeds
+
+
+def host_extend_seeds(seeds, params):
+    """ExtendEngine's records computed over the native host engine."""
+    from acc_genomics_tpu_torch.engine.extend_engine import resolve_seeds, seed_tasks
+    from acc_genomics_tpu_torch.shared import native
+
+    lq, lt, rq, rt = seed_tasks(seeds)
+    lres = native.sw_extend_host(lq, lt, [s["len"] for s in seeds], params)
+    rres = native.sw_extend_host(rq, rt, [int(v) for v in lres["score"]], params)
+    return resolve_seeds(seeds, lres, rres, params.pen_clip)
+
+
+def oracle_record(s, params):
+    from acc_genomics_tpu_torch.shared import extend_seed_oracle
+
+    return extend_seed_oracle(s["read"], s["rseq"], s["qbeg"], s["rbeg_off"], s["len"], params)
+
+
+def extend_phases(card: str, dev) -> dict:
+    """Phases 10-11: the extension kernel against its plain version, then
+    ExtendEngine on the card and its edges.  Returns the kernels-line
+    entry (its launches: the engine phase's; phase 13 adds its own)."""
+    import torch
+
+    from acc_genomics_tpu_torch.engine.extend_engine import ExtendEngine
+    from acc_genomics_tpu_torch.ops.extend import kernel as EK
+    from acc_genomics_tpu_torch.shared import read_results, read_task_file, run_tasks
+
+    # -- 10. kernel vs plain --------------------------------------------------
+    err = 0
+    bench = None
+    for name, q, t, ql, tl, h0 in extend_batches(dev):
+        got = EK.sw_extend_rows(q, t, ql, tl, h0, ql, ql)
+        want = EK.sw_extend_plain(q, t, ql, tl, h0, ql, ql)
+        torch.cuda.synchronize()
+        e = int((got.long() - want.long()).abs().max())
+        err = max(err, e)
+        rounds2 = int((got[6] == 200).sum())
+        say(f"extend {name}: {q.shape[1]} tasks, Q {q.shape[0]} T {t.shape[0]}; "
+            f"max_abs_err={e} over 7 outputs; round 2 on {rounds2} lanes; "
+            f"mean score {float(got[0].float().mean()):.3f}")
+        check(e == 0, f"extend kernel vs plain, {name} batch: not bit-exact")
+        if name == "round2":
+            check(rounds2 > q.shape[1] // 2, "the round-2 batch ran round 2 on few lanes")
+        if name == "bench":
+            bench = (q, t, ql, tl, h0)
+    q, t, ql, tl, h0 = bench
+    k_ms = cuda_time_ms(lambda: EK.sw_extend_rows(q, t, ql, tl, h0, ql, ql))
+    p_ms = cuda_time_ms(lambda: EK.sw_extend_plain(q, t, ql, tl, h0, ql, ql),
+                        repeats=3, warm=False)
+    say(f"extend bench batch: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+        f"kernel_seeds_per_s={q.shape[1] / (k_ms * 1e-3):.1f} [{card}]")
+
+    # -- 11. ExtendEngine main path --------------------------------------------
+    _, seeds = extend_bench_seeds()
+    eng = ExtendEngine(device=dev)
+    first = eng.extend_seeds(seeds)  # warm-up
+    torch.cuda.synchronize()
+    eng.reset_anatomy()
+    EK.LAUNCHES.clear()
+    times, results = [], []
+    for _ in range(E2E_REPEATS):
+        t0 = time.perf_counter()
+        results.append(eng.extend_seeds(seeds))
+        times.append(time.perf_counter() - t0)
+    launches = EK.LAUNCHES["sw_extend"]
+    med = statistics.median(times)
+    anatomy = {k: round(v / E2E_REPEATS, 6) for k, v in eng.anatomy.items()}
+    say(f"ExtendEngine main path: {len(seeds)} seeds, {launches} launches over "
+        f"{E2E_REPEATS} calls; seeds_per_s median={len(seeds) / med:.1f} "
+        f"min={len(seeds) / max(times):.1f} max={len(seeds) / min(times):.1f}; "
+        f"anatomy per call {anatomy} [{card}]")
+    check(launches > 0 and launches == E2E_REPEATS * eng.stats["device_calls"]
+          // (E2E_REPEATS + 1), f"ExtendEngine launches {launches}")
+    check(all(r == first for r in results), "repeated ExtendEngine calls differ")
+    check(first == host_extend_seeds(seeds, eng.params), "ExtendEngine vs native host")
+    sample = np.random.default_rng(8).choice(len(seeds), 64, replace=False)
+    check(all(first[k] == oracle_record(seeds[k], eng.params) for k in sample),
+          "ExtendEngine vs oracle")
+    say(f"ExtendEngine == native host on {len(seeds)} seeds, == oracle on 64: ok "
+        f"(stats {eng.stats})")
+
+    # edges: a seed past the caps, degenerate seeds, the BWA-SW records
+    genome, _ = extend_bench_seeds(0)
+    edge = [dict(s) for s in seeds[:8]]
+    pos = 5000
+    edge.append(dict(read=genome[pos: pos + 101].copy(), rseq=genome[pos - 1100: pos + 201],
+                     qbeg=40, rbeg_off=1140, len=21))  # left target 1140 > 1024
+    read = genome[300:360].copy()
+    rseq = genome[260:400]
+    edge += [dict(read=read, rseq=rseq, qbeg=0, rbeg_off=40, len=20),
+             dict(read=read, rseq=rseq, qbeg=40, rbeg_off=80, len=20),
+             dict(read=read, rseq=rseq, qbeg=0, rbeg_off=40, len=60)]
+    eng = ExtendEngine(device=dev)
+    got = eng.extend_seeds(edge)
+    check(eng.stats["host_fallback"] == 1, "one seed past the caps on the host")
+    check(got == host_extend_seeds(edge, eng.params)
+          and all(g == oracle_record(s, eng.params) for g, s in zip(got, edge)),
+          "extend edges vs native host and oracle")
+    fix = os.path.join(HERE, "tests/fixtures")
+    want = read_results(os.path.join(fix, "bwasw_results0.bin"))
+    recs = run_tasks(ExtendEngine(device=dev), np.load(os.path.join(fix, "bwasw_genome.npy")),
+                     read_task_file(os.path.join(fix, "bwasw_tasks0.bin")))
+    by_idx = {r["seed_index"]: r for r in recs}
+    check(len(recs) == len(want) and all(by_idx[w["seed_index"]] == w for w in want),
+          "BWA-SW record fixture vs golden results, on the card")
+    say(f"extend edges: 1 seed past the caps on the host, 3 degenerate seeds, "
+        f"{len(want)} BWA-SW fixture records: all exact")
+    return {"name": "sw_extend", "route": "cuda", "source": EXTEND_SOURCE,
+            "replaces": EXTEND_TPU, "launches": launches, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms}
+
+
+def pack_reads(reads, rows: int):
+    seq = np.full((rows, len(reads)), 4, np.uint8)
+    lens = np.array([len(r) for r in reads], np.int32)
+    for k, r in enumerate(reads):
+        seq[: len(r), k] = r
+    return seq, lens
+
+
+class HostSmem:
+    """SmemEngine's interface over the native host engine."""
+
+    def __init__(self, fm, params):
+        self.fm, self.params = fm, params
+
+    def collect(self, reads):
+        from acc_genomics_tpu_torch.shared import native
+
+        return native.smem_collect_host(self.fm, reads, self.params)
+
+
+class HostExtend:
+    """ExtendEngine's interface over the native host engine."""
+
+    def __init__(self, params):
+        self.params = params
+
+    def extend_seeds(self, seeds):
+        return host_extend_seeds(seeds, self.params)
+
+
+def oracle_hits(fm, read, max_occ, flank, smem_params, ext_params):
+    """drivers/bwamem_driver.py's oracle chain for one read: SMEM oracle,
+    suffix-array positions in row order (at most max_occ), seed
+    extension oracle; (qbeg, qend, rbeg, rend, score, trueScore, width,
+    occ) per seed."""
+    from acc_genomics_tpu_torch.shared import extend_seed_oracle, mem_collect_intv_oracle
+
+    out = []
+    for iv in mem_collect_intv_oracle(fm, read, smem_params):
+        slen = iv["end"] - iv["start"]
+        for pos in fm.sa[iv["x0"]: iv["x0"] + min(iv["s"], max_occ)]:
+            pos = int(pos)
+            span_lo = max(0, pos - iv["start"] - flank)
+            span_hi = min(fm.seq_len, pos + slen + (len(read) - iv["end"]) + flank)
+            res = extend_seed_oracle(read, fm.text[span_lo:span_hi], iv["start"],
+                                     pos - span_lo, slen, ext_params)
+            out.append((res["qBeg"], iv["end"] + res["qEnd"], pos + res["rBeg"],
+                        pos + slen + res["rEnd"], res["score"], res["trueScore"],
+                        res["width"], iv["s"]))
+    return out
+
+
+def smem_bwa_phases(card: str, dev, extend_entry: dict) -> dict:
+    """Phases 12-13 over one 100 Mbp index: the SMEM kernel against its
+    plain version, SmemEngine on the card and its edges, then
+    BwaMemSeeding on the port's two engines.  Adds phase 13's extension
+    launches to ``extend_entry`` and returns the SMEM kernels-line entry."""
+    import torch
+
+    from acc_genomics_tpu_torch.engine.extend_engine import ExtendEngine
+    from acc_genomics_tpu_torch.engine.smem_engine import SmemEngine
+    from acc_genomics_tpu_torch.models import BwaEngines, BwaMemSeeding
+    from acc_genomics_tpu_torch.ops.extend import kernel as EK
+    from acc_genomics_tpu_torch.ops.smem import kernel as MK
+    from acc_genomics_tpu_torch.ops.smem.table import DeviceIndex
+    from acc_genomics_tpu_torch.shared import (
+        FMIndex,
+        SmemConfig,
+        gen_reference_with_repeats,
+        gen_smem_reads,
+        mem_collect_intv_oracle,
+        native,
+    )
+
+    # -- 12. index, kernel vs plain ---------------------------------------------
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    genome = gen_reference_with_repeats(rng, SMEM_GENOME)
+    t1 = time.perf_counter()
+    fm = FMIndex.build(genome)
+    t2 = time.perf_counter()
+    reads = gen_smem_reads(rng, genome, SMEM_READS, read_len=101)
+    say(f"SMEM index: {SMEM_GENOME} bases (text {fm.seq_len}), genome_s={t1 - t0:.2f} "
+        f"FMIndex.build_s={t2 - t1:.2f}; {len(reads)} reads of 101")
+    params = SmemConfig().params()
+    idx = DeviceIndex.build(fm, dev)
+    seq, lens = pack_reads(reads, 128)
+    seq_d, lens_d = torch.from_numpy(seq).to(dev), torch.from_numpy(lens).to(dev)
+    got = MK.smem_collect(idx, seq_d, lens_d, params)
+    t0 = time.perf_counter()
+    want = MK.smem_collect_plain(idx, seq_d, lens_d, params)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+    n_flag = int(got[2].sum())
+    n_iv = int(got[1].sum())
+    say(f"smem kernel vs plain, {len(reads)} reads: max_abs_err={err} over mem, counts, "
+        f"flags, probes; {n_iv} intervals, {n_flag} flagged, "
+        f"{int(got[3].long().sum())} probes (max {int(got[3].max())} a read)")
+    check(err == 0, "SMEM kernel vs plain: not exact")
+    k_ms = cuda_time_ms(lambda: MK.smem_collect(idx, seq_d, lens_d, params))
+    say(f"smem bench batch: kernel_ms={k_ms:.4f} plain_ms={plain_ms:.4f} (one call, "
+        f"host clock) kernel_reads_per_s={len(reads) / (k_ms * 1e-3):.1f} [{card}]")
+    del got, want
+
+    # -- 12. SmemEngine main path -----------------------------------------------
+    eng = SmemEngine(fm, device=dev)
+    first = eng.collect(reads)  # warm-up
+    torch.cuda.synchronize()
+    eng.reset_anatomy()
+    MK.LAUNCHES.clear()
+    times, results = [], []
+    for _ in range(HC_REPEATS):
+        t0 = time.perf_counter()
+        results.append(eng.collect(reads))
+        times.append(time.perf_counter() - t0)
+    smem_launches = MK.LAUNCHES["smem_collect"]
+    med = statistics.median(times)
+    anatomy = {k: round(v / HC_REPEATS, 6) for k, v in eng.anatomy.items()}
+    say(f"SmemEngine main path: {len(reads)} reads, {smem_launches} launches over "
+        f"{HC_REPEATS} calls; reads_per_s median={len(reads) / med:.1f} "
+        f"min={len(reads) / max(times):.1f} max={len(reads) / min(times):.1f}; "
+        f"anatomy per call {anatomy}; stats {eng.stats} [{card}]")
+    check(smem_launches == HC_REPEATS, f"SmemEngine launches {smem_launches}")
+    check(all(r == first for r in results), "repeated SmemEngine calls differ")
+    check(first == native.smem_collect_host(fm, reads, params), "SmemEngine vs native host")
+    sample = np.random.default_rng(9).choice(len(reads), 64, replace=False)
+    check(all(first[k] == mem_collect_intv_oracle(fm, reads[k], params) for k in sample),
+          "SmemEngine vs oracle")
+    say(f"SmemEngine == native host on {len(reads)} reads in order, == oracle on 64: ok")
+    del results
+
+    # edges: past seq_length, all-N, shorter than min_seed_len, and a tandem
+    # repeat read among 200 bench reads through caps of 6 chain rows and 4
+    # output rows (no read of this genome busts the default caps)
+    erng = np.random.default_rng(10)
+    p = int(erng.integers(0, SMEM_GENOME - 400))
+    edge = [genome[p: p + 300].copy(), np.full(101, 4, np.uint8), genome[p: p + 12].copy(),
+            np.tile(genome[p: p + 8], 13)[:101].copy()] + reads[:200]
+    tight = SmemEngine(fm, SmemConfig(curr_cap=6, mem_cap=4), device=dev)
+    got = tight.collect(edge)
+    check(got == native.smem_collect_host(fm, edge, params)
+          and got[:3] == [mem_collect_intv_oracle(fm, r, params) for r in edge[:3]],
+          "SMEM edges vs native host")
+    check(got[1] == [] and got[2] == [] and tight.stats["overflow_reruns"] > 0,
+          "all-N and short reads give no interval; tight caps flag reads")
+    say(f"SMEM edges: 300 bp read on the host, all-N and 12 bp reads empty, caps 6/4 "
+        f"flag {tight.stats['overflow_reruns']} of {len(edge) - 1} device reads, all "
+        f"rerun exact")
+
+    # -- 13. BwaMemSeeding --------------------------------------------------------
+    bwa_reads = gen_smem_reads(rng, genome, BWA_READS, read_len=101)
+    engines = BwaEngines(eng, ExtendEngine(device=dev))
+    seeding = BwaMemSeeding(engines, max_occ=4, flank=100)
+    first = seeding.map_reads(bwa_reads)  # warm-up
+    torch.cuda.synchronize()
+    MK.LAUNCHES.clear()
+    EK.LAUNCHES.clear()
+    times, results = [], []
+    for _ in range(HC_REPEATS):
+        t0 = time.perf_counter()
+        results.append(seeding.map_reads(bwa_reads))
+        times.append(time.perf_counter() - t0)
+    bwa_launches = {**MK.LAUNCHES, **EK.LAUNCHES}
+    med = statistics.median(times)
+    n_hits = sum(len(h) for h in first)
+    say(f"BwaMemSeeding: {len(bwa_reads)} reads, {n_hits} seed hits a call; "
+        f"reads_per_s median={len(bwa_reads) / med:.1f} min={len(bwa_reads) / max(times):.1f} "
+        f"max={len(bwa_reads) / min(times):.1f} (n={HC_REPEATS}); launches {bwa_launches} "
+        f"[{card}]")
+    check(bwa_launches.get("smem_collect", 0) > 0 and bwa_launches.get("sw_extend", 0) > 0,
+          f"BwaMemSeeding launches {bwa_launches}")
+    check(all(r == first for r in results), "repeated BwaMemSeeding calls differ")
+    host = BwaMemSeeding(BwaEngines(HostSmem(fm, params), HostExtend(engines.extend.params)),
+                         max_occ=4, flank=100).map_reads(bwa_reads)
+    check(first == host, "BwaMemSeeding vs the native host composition")
+    for k in range(16):
+        got_k = [(h.qbeg, h.qend, h.rbeg, h.rend, h.score, h.true_score, h.width, h.occ)
+                 for h in first[k]]
+        check(got_k == oracle_hits(fm, bwa_reads[k], 4, 100, params, engines.extend.params),
+              f"BwaMemSeeding vs oracle chain, read {k}")
+    say(f"BwaMemSeeding == native host composition on {len(bwa_reads)} reads, == oracle "
+        f"chain on 16: ok")
+    extend_entry["launches"] += bwa_launches.get("sw_extend", 0)
+    return {"name": "smem_collect", "route": "cuda", "source": SMEM_SOURCE,
+            "replaces": SMEM_TPU, "launches": smem_launches + bwa_launches.get("smem_collect", 0),
+            "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms}
+
+
 def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, "acc_genomics_tpu_torch")):
+        # run alone, outside a checkout: there is no port to drive
+        print(f"chip_smoke: no acc_genomics_tpu_torch package beside {__file__}; "
+              "run it from a checkout of the repository", file=sys.stderr)
+        return 1
     import torch
 
     if not torch.cuda.is_available():
@@ -461,6 +844,8 @@ def main() -> int:
     from acc_genomics_tpu_torch.build import ensure_native, find_nvcc
     from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
     from acc_genomics_tpu_torch.ops.pairhmm import kernel as K
+    from acc_genomics_tpu_torch.ops.extend import kernel as EK
+    from acc_genomics_tpu_torch.ops.smem import kernel as MK
     from acc_genomics_tpu_torch.ops.sw import kernel as SK
     from acc_genomics_tpu_torch.ops.pairhmm.convert import (
         batch_to_torch,
@@ -495,14 +880,15 @@ def main() -> int:
 
     # -- 2. build: one nvcc per source, all started together ------------------
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        futures = [pool.submit(K.build_kernels), pool.submit(SK.build_kernels)]
-        libs = [futures[0].result(), *futures[1].result().values()]
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        futures = [pool.submit(K.build_kernels), pool.submit(SK.build_kernels),
+                   pool.submit(EK.build_kernels), pool.submit(MK.build_kernels)]
+        libs = [futures[0].result()] + [b for f in futures[1:] for b in f.result().values()]
     wall = time.perf_counter() - t0
     for built in libs:
         say(f"build: {built.path} built={built.built} nvcc_s={built.seconds:.2f}")
         for line in built.log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if "registers" in line or "smem" in line or "spill" in line or "stack" in line:
                 say(f"  ptxas: {line.strip()}")
     say(f"build wall_s={wall:.2f}")
 
@@ -710,7 +1096,11 @@ def main() -> int:
     sw_entries = sw_phases(card)
     hc_phases(card)
 
-    say(json.dumps({"kernels": [pairhmm_entry, *sw_entries]}))
+    # -- 10-13. BWA-MEM: extension, SMEM, BwaMemSeeding ----------------------------
+    extend_entry = extend_phases(card, dev)
+    smem_entry = smem_bwa_phases(card, dev, extend_entry)
+
+    say(json.dumps({"kernels": [pairhmm_entry, *sw_entries, extend_entry, smem_entry]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,22 +8,43 @@ installed (the repository's conftest imports it):
 Without a card every test skips.  Tolerances: the PairHMM kernel against
 its plain PyTorch version in log space rtol 1e-5 (the kernel contracts
 multiply-adds into fmas and sums in another order); inert lanes exactly 0.
-The SW kernels are integer: bit-exact against their plain versions, and
-the SW engine exact against the native host engine.
+The SW, extension and SMEM kernels are integer: bit-exact against their
+plain versions, and their engines exact against the native host engines.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import os
+
 from acc_genomics_tpu import native
-from acc_genomics_tpu.config import PairHMMConfig
-from acc_genomics_tpu.io.synth import gen_pairhmm_input, gen_pairhmm_pairs, gen_sw_batch
+from acc_genomics_tpu.config import PairHMMConfig, SmemConfig
+from acc_genomics_tpu.io import bwasw_records as br
+from acc_genomics_tpu.io.synth import (
+    gen_pairhmm_input,
+    gen_pairhmm_pairs,
+    gen_reference_with_repeats,
+    gen_smem_reads,
+    gen_sw_batch,
+)
+from acc_genomics_tpu.ops.smem.index import FMIndex
+from acc_genomics_tpu_torch.build import ensure_native
+from acc_genomics_tpu_torch.engine.extend_engine import (
+    ExtendEngine,
+    resolve_seeds,
+    seed_tasks,
+)
 from acc_genomics_tpu.ops.pairhmm.context import PairHMMContext
 from acc_genomics_tpu.ops.pairhmm.pack import pack_pairhmm_batch, pack_pairhmm_quals
 from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
+from acc_genomics_tpu_torch.engine.smem_engine import SmemEngine
 from acc_genomics_tpu_torch.engine.sw_engine import SWEngine
+from acc_genomics_tpu_torch.models import BwaEngines, BwaMemSeeding
+from acc_genomics_tpu_torch.ops.extend import kernel as EK
 from acc_genomics_tpu_torch.ops.pairhmm import kernel as K
+from acc_genomics_tpu_torch.ops.smem import kernel as MK
+from acc_genomics_tpu_torch.ops.smem.table import DeviceIndex
 from acc_genomics_tpu_torch.ops.sw import kernel as SK
 from acc_genomics_tpu_torch.ops.sw.batch import pack_planes
 from acc_genomics_tpu_torch.ops.pairhmm.convert import (
@@ -170,3 +191,124 @@ def test_cuda_sw_engine_matches_native_host(cuda):
         assert got == native.sw_align_host(refs, alts, strategy)
     assert eng.stats["host_fallback"] == 4
     assert SK.LAUNCHES["sw_walk"] - before == 4 * n_buckets  # one chunk each
+
+
+FIX = os.path.join(os.path.dirname(__file__), "fixtures")
+
+
+def _extend_batch(rng, n, qmax, tmax):
+    """Query-like targets with errors, a 7-base insertion in every fourth
+    (round 2 at band 8), ambiguous bases in every fifth; time-major."""
+    q = np.full((qmax, n), 4, np.uint8)
+    t = np.full((tmax, n), 4, np.uint8)
+    ql = rng.integers(0, qmax + 1, n).astype(np.int32)
+    tl = rng.integers(0, tmax + 1, n).astype(np.int32)
+    for b in range(n):
+        qq = rng.integers(0, 4, ql[b]).astype(np.uint8)
+        tt = rng.integers(0, 4, tl[b]).astype(np.uint8)
+        src = qq if b % 4 else np.concatenate([qq[:20], rng.integers(0, 4, 7), qq[20:]])
+        m = min(len(src), tl[b])
+        tt[:m] = np.where(rng.random(m) < 0.95, src[:m], tt[:m])
+        if b % 5 == 0:
+            tt[::9] = 4
+        q[: ql[b], b] = qq
+        t[: tl[b], b] = tt
+    h0 = rng.integers(1, 40, n).astype(np.int32)
+    return q, t, ql, tl, h0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [100, 8])
+def test_cuda_extend_kernel_matches_plain(cuda, w):
+    from acc_genomics_tpu_torch.shared import ExtendParams
+
+    rng = np.random.default_rng(4)
+    p = ExtendParams(w=w)
+    q, t, ql, tl, h0 = (torch.from_numpy(x).to(cuda) for x in _extend_batch(rng, 700, 128, 256))
+    before = EK.LAUNCHES["sw_extend"]
+    got = EK.sw_extend_rows(q, t, ql, tl, h0, ql, ql, p)
+    torch.cuda.synchronize()
+    assert EK.LAUNCHES["sw_extend"] == before + 1
+    want = EK.sw_extend_plain(q, t, ql, tl, h0, ql, ql, p)
+    assert torch.equal(got, want)
+    if w == 8:
+        assert (got[6] == 16).any()
+
+
+@pytest.mark.gpu
+def test_cuda_extend_engine_matches_native_host(cuda):
+    genome = np.load(os.path.join(FIX, "bwasw_genome.npy"))
+    tasks = br.read_task_file(os.path.join(FIX, "bwasw_tasks0.bin"))
+    want = br.read_results(os.path.join(FIX, "bwasw_results0.bin"))
+    eng = ExtendEngine(device=cuda)
+    got = {r["seed_index"]: r for r in br.run_tasks(eng, genome, tasks)}
+    assert all(got[w["seed_index"]] == w for w in want)
+    rng = np.random.default_rng(5)
+    genome = rng.integers(0, 4, 6000).astype(np.uint8)
+    seeds = []
+    for k in range(300):
+        pos = int(rng.integers(1200, 4700))
+        read = genome[pos: pos + 101].copy()
+        read[rng.random(101) < 0.03] = 1
+        qb = int(rng.integers(0, 80))
+        flank = 100 if k % 50 else 1100  # past max_tlen: the host
+        lo = max(0, pos - flank)
+        seeds.append(dict(read=read, rseq=genome[lo: pos + 101 + flank], qbeg=qb,
+                          rbeg_off=pos + qb - lo, len=19))
+    eng = ExtendEngine(device=cuda)
+    before = EK.LAUNCHES["sw_extend"]
+    got = eng.extend_seeds(seeds)
+    lq, lt, rq, rt = seed_tasks(seeds)
+    lres = native.sw_extend_host(lq, lt, [19] * len(seeds), eng.params)
+    rres = native.sw_extend_host(rq, rt, [int(v) for v in lres["score"]], eng.params)
+    assert got == resolve_seeds(seeds, lres, rres, eng.params.pen_clip)
+    assert eng.stats["host_fallback"] == 6
+    assert EK.LAUNCHES["sw_extend"] - before == eng.stats["device_calls"]
+
+
+def _smem_case(rng):
+    ensure_native()  # FMIndex.build's suffix array comes from it
+    genome = gen_reference_with_repeats(rng, 50_000)
+    reads = gen_smem_reads(rng, genome, 500, read_len=101)
+    reads[0][30:33] = 4
+    reads += [np.full(40, 4, np.uint8), reads[1][:10].copy(), np.zeros(0, np.uint8)]
+    return FMIndex.build(genome), reads
+
+
+@pytest.mark.gpu
+def test_cuda_smem_kernel_matches_plain(cuda):
+    from acc_genomics_tpu_torch.shared import SmemParams
+
+    fm, reads = _smem_case(np.random.default_rng(6))
+    seq = np.full((128, len(reads)), 4, np.uint8)
+    lens = np.array([len(r) for r in reads], np.int32)
+    for k, r in enumerate(reads):
+        seq[: len(r), k] = r
+    idx = DeviceIndex.build(fm, cuda)
+    seq_d, lens_d = torch.from_numpy(seq).to(cuda), torch.from_numpy(lens).to(cuda)
+    for params in (SmemParams(), SmemParams(curr_cap=3, mem_cap=4)):
+        before = MK.LAUNCHES["smem_collect"]
+        got = MK.smem_collect(idx, seq_d, lens_d, params)
+        torch.cuda.synchronize()
+        assert MK.LAUNCHES["smem_collect"] == before + 1
+        want = MK.smem_collect_plain(idx, seq_d, lens_d, params)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert got[2].any()  # the tight caps flag reads
+
+
+@pytest.mark.gpu
+def test_cuda_smem_engine_and_bwa_mem_match_host(cuda):
+    fm, reads = _smem_case(np.random.default_rng(7))
+    reads.append(np.tile(reads[2], 3))  # past seq_length: the host
+    eng = SmemEngine(fm, SmemConfig(batch_size=128), device=cuda)
+    before = MK.LAUNCHES["smem_collect"]
+    got = eng.collect(reads)
+    assert got == native.smem_collect_host(fm, reads, eng.params)
+    # 500 reads of 101 in batches of 128 (bucket 128), 3 short ones (bucket 64)
+    assert MK.LAUNCHES["smem_collect"] - before == 5
+    engines = BwaEngines(eng, ExtendEngine(device=cuda))
+    cpu = BwaEngines(SmemEngine(fm, device="cpu"), ExtendEngine(device="cpu"))
+    sub = reads[:16]
+    assert (BwaMemSeeding(engines, max_occ=4).map_reads(sub)
+            == BwaMemSeeding(cpu, max_occ=4).map_reads(sub))

@@ -45,6 +45,15 @@ def test_port_imports_without_jax():
         "acc_genomics_tpu_torch.models",
         "acc_genomics_tpu_torch.models.haplotype_caller",
         "acc_genomics_tpu_torch.io.synth",
+        "acc_genomics_tpu_torch.ops.extend",
+        "acc_genomics_tpu_torch.ops.extend.kernel",
+        "acc_genomics_tpu_torch.engine.packing",
+        "acc_genomics_tpu_torch.engine.extend_engine",
+        "acc_genomics_tpu_torch.ops.smem",
+        "acc_genomics_tpu_torch.ops.smem.table",
+        "acc_genomics_tpu_torch.ops.smem.kernel",
+        "acc_genomics_tpu_torch.engine.smem_engine",
+        "acc_genomics_tpu_torch.models.bwa_mem",
     ]
     code = "import sys\n" + "".join(f"import {m}\n" for m in mods) + (
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))"
@@ -142,3 +151,24 @@ def test_chip_smoke_fails_without_cuda():
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_alone_fails_with_reason(tmp_path):
+    """Run alone, in a directory that holds chip_smoke.py and nothing else
+    of the repository, the script names what is missing and exits 1
+    before it looks for a card; from a checkout, run from another working
+    directory, it finds the port (and here stops at the card check)."""
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    (alone / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=alone,
+                         env=dict(os.environ, PYTHONPATH=""), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 1 and out.stdout == ""
+    assert "no acc_genomics_tpu_torch package" in out.stderr
+    elsewhere = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=tmp_path,
+        env=dict(os.environ, PYTHONPATH="", CUDA_VISIBLE_DEVICES=""),
+        capture_output=True, text=True, timeout=120)
+    assert elsewhere.returncode == 1 and '"ok"' not in elsewhere.stdout
+    assert "is_available() is False" in elsewhere.stderr

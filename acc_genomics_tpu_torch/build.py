@@ -7,8 +7,8 @@ hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is.  A failed build or load raises with
 the compiler's output: there is no fallback.
 
-The JAX package's native host library (``acc_genomics_tpu/native``) is
-built here too, with a C++ compiler, into the same directory and under an
+The port's native host library (``native/csrc/accnative.cpp``) is built
+here too, with a C++ compiler, into the same directory and under an
 inter-process lock (``build_native``, ``ensure_native``).
 
 Pointers and the stream cross the C boundary as ``ctypes.c_void_p``;
@@ -40,7 +40,7 @@ NVCC_FLAGS = (
     "-ftz=false", "-prec-div=true", "-prec-sqrt=true",
     "-Xptxas", "-v",
 )
-# the flags of acc_genomics_tpu/native/Makefile
+# the native host library's flags (OpenMP for its batch loops)
 NATIVE_CXXFLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
                    "-fopenmp")
 
@@ -100,8 +100,8 @@ def _file_lock(path: str):
 
 
 def build_native(build_dir: str = BUILD_DIR) -> NativeBuild:
-    """Compile the JAX package's native host library into this package's
-    own ``<build_dir>/libaccnative-<hash>.so`` (hash of the source and the
+    """Compile the native host library (``native/csrc/accnative.cpp``) into
+    ``<build_dir>/libaccnative-<hash>.so`` (hash of the source and the
     flags), once across processes.
 
     The build runs under an ``flock`` on ``<build_dir>/native.lock`` and
@@ -109,10 +109,7 @@ def build_native(build_dir: str = BUILD_DIR) -> NativeBuild:
     process ever sees a half-written library.  ``$CXX`` is tried first,
     then the host's ``g++`` and ``c++`` (a ``$CXX`` without OpenMP cannot
     build it).  Raises with every compiler's output when none can."""
-    from acc_genomics_tpu_torch.shared import native
-
-    src = os.path.join(os.path.dirname(os.path.abspath(native.__file__)),
-                       "accnative.cpp")
+    src = os.path.join(PACKAGE_DIR, "native", "csrc", "accnative.cpp")
     h = hashlib.sha256(" ".join(NATIVE_CXXFLAGS).encode())
     with open(src, "rb") as f:
         h.update(f.read())
@@ -143,21 +140,14 @@ def build_native(build_dir: str = BUILD_DIR) -> NativeBuild:
 
 
 def ensure_native(build_dir: str = BUILD_DIR) -> bool:
-    """Load the JAX package's native host library (packers, host engines,
-    fp64 recompute) from the port's own build of it (``build_native``).
+    """Build (``build_native``) and load the native host library (packers,
+    host engines, fp64 recompute) into ``acc_genomics_tpu_torch.native``.
     Returns ``native.available()``; raises when it cannot be built."""
-    from acc_genomics_tpu_torch.shared import native
+    from acc_genomics_tpu_torch import native
 
     with _lock:
         if native._lib is None:
-            # The JAX package builds its library with an unlocked ``make``
-            # into one fixed path, so a process can load a file that
-            # another is still writing, and after one failed load
-            # (``_tried``) it never loads again.  Point it at the port's
-            # own copy, which is complete before it appears, and clear a
-            # failed attempt, before the first load.
-            native._LIB_PATH = build_native(build_dir).path
-            native._tried = False
+            native.load(build_native(build_dir).path)
     return native.available()
 
 

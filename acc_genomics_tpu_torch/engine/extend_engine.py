@@ -33,7 +33,9 @@ from acc_genomics_tpu_torch.build import ensure_native
 from acc_genomics_tpu_torch.device import resolve_device
 from acc_genomics_tpu_torch.engine.packing import pack_tm
 from acc_genomics_tpu_torch.ops.extend.kernel import KEYS, sw_extend_rows
-from acc_genomics_tpu_torch.shared import ExtendConfig, Timer, native
+from acc_genomics_tpu_torch import native
+from acc_genomics_tpu_torch.config import ExtendConfig
+from acc_genomics_tpu_torch.utils.timer import Timer
 
 
 def _bucket_ladder(start: int, cap: int) -> Tuple[int, ...]:
@@ -91,7 +93,7 @@ class ExtendEngine:
         self.device = resolve_device(device)
         if not ensure_native():
             raise RuntimeError(
-                "the native host library (acc_genomics_tpu/native) is "
+                "the native host library (acc_genomics_tpu_torch/native) is "
                 "unavailable: the host fallback needs it"
             )
         self.q_buckets = _bucket_ladder(32, config.max_qlen)

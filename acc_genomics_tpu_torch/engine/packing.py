@@ -6,13 +6,13 @@ from __future__ import annotations
 import numpy as np
 
 
-def pack_tm(seqs, L: int, bsz: int):
-    """Pad-pack a list of 1-D code arrays into a time-major (L, bsz) uint8
+def pack_rows(seqs, L: int, bsz: int):
+    """Pad-pack a list of 1-D code arrays into a row-major (bsz, L) uint8
     buffer (pad 4) with one scatter; returns (buf, lens (len(seqs),)
-    int32).  A copy of the JAX extend engine's ``_pack_tm``: the flat
-    index of sequence j's element i is j * L + i, built by one cumsum, and
-    one transpose restores time-major.  Negative-stride views (the
-    reversed left queries and targets) concatenate as they are."""
+    int32).  The flat index of sequence j's element i is j * L + i, built
+    by one cumsum (the JAX extend engine's ``_pack_tm``).  Negative-stride
+    views (the reversed left queries and targets) concatenate as they
+    are."""
     n = len(seqs)
     lens = np.fromiter((len(s) for s in seqs), np.int64, n)
     tot = int(lens.sum())
@@ -26,4 +26,10 @@ def pack_tm(seqs, L: int, bsz: int):
         if len(jarr) > 1:
             d[np.cumsum(lnz[:-1])] = (jarr[1:] - jarr[:-1]) * L - lnz[:-1] + 1
         flat[np.cumsum(d)] = cat
-    return np.ascontiguousarray(flat.reshape(bsz, L).T), lens.astype(np.int32)
+    return flat.reshape(bsz, L), lens.astype(np.int32)
+
+
+def pack_tm(seqs, L: int, bsz: int):
+    """``pack_rows`` transposed: a time-major (L, bsz) uint8 buffer."""
+    rows, lens = pack_rows(seqs, L, bsz)
+    return np.ascontiguousarray(rows.T), lens

@@ -35,14 +35,12 @@ from acc_genomics_tpu_torch.device import resolve_device
 from acc_genomics_tpu_torch.engine.bucketing import plan_buckets
 from acc_genomics_tpu_torch.ops.pairhmm.convert import context_tables
 from acc_genomics_tpu_torch.ops.pairhmm.kernel import pairhmm_forward_from_quals
-from acc_genomics_tpu_torch.shared import (
-    HAP_PAD,
-    PairHMMConfig,
-    PairHMMContext,
-    Timer,
-    native,
-    pack_pairhmm_quals,
-)
+from acc_genomics_tpu_torch import native
+from acc_genomics_tpu_torch.config import PairHMMConfig
+from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext
+from acc_genomics_tpu_torch.ops.pairhmm.pack import pack_pairhmm_quals
+from acc_genomics_tpu_torch.utils.convert import HAP_PAD
+from acc_genomics_tpu_torch.utils.timer import Timer
 
 
 @dataclasses.dataclass
@@ -108,7 +106,7 @@ class PairHMMEngine:
         self.device = resolve_device(device)
         if not ensure_native():
             raise RuntimeError(
-                "the native host library (acc_genomics_tpu/native) is "
+                "the native host library (acc_genomics_tpu_torch/native) is "
                 "unavailable: the flat path, the host engine and the fp64 "
                 "recompute need it"
             )

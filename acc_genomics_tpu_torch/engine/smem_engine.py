@@ -37,13 +37,11 @@ from acc_genomics_tpu_torch.device import resolve_device
 from acc_genomics_tpu_torch.engine.packing import pack_tm
 from acc_genomics_tpu_torch.ops.smem.kernel import smem_collect
 from acc_genomics_tpu_torch.ops.smem.table import DeviceIndex
-from acc_genomics_tpu_torch.shared import (
-    FMIndex,
-    SmemConfig,
-    Timer,
-    mem_collect_intv_oracle,
-    native,
-)
+from acc_genomics_tpu_torch import native
+from acc_genomics_tpu_torch.config import SmemConfig
+from acc_genomics_tpu_torch.ops.smem.index import FMIndex
+from acc_genomics_tpu_torch.ops.smem.reference import mem_collect_intv_oracle
+from acc_genomics_tpu_torch.utils.timer import Timer
 
 def split_dicts(flat: np.ndarray, counts: np.ndarray) -> List[List[dict]]:
     """(tot, 5) intervals, read-major, and per-read counts -> per-read
@@ -66,7 +64,7 @@ class SmemEngine:
         self.device = resolve_device(device)
         if not ensure_native():
             raise RuntimeError(
-                "the native host library (acc_genomics_tpu/native) is "
+                "the native host library (acc_genomics_tpu_torch/native) is "
                 "unavailable: the host reruns need it"
             )
         with Timer("smem.index_upload"):

@@ -32,7 +32,10 @@ from acc_genomics_tpu_torch.ops.sw.batch import (
     sw_align_batch_decode,
     sw_align_batch_launch,
 )
-from acc_genomics_tpu_torch.shared import SWConfig, Timer, native, sw_align_oracle
+from acc_genomics_tpu_torch import native
+from acc_genomics_tpu_torch.config import SWConfig
+from acc_genomics_tpu_torch.ops.sw.reference import sw_align_oracle
+from acc_genomics_tpu_torch.utils.timer import Timer
 
 # Device bytes one chunk's int16 backtrack matrix may take: (rows + cols -
 # 1) x rows codes a pair, 0.41 MB at 320 x 320 and 9.4 MB at 1536 x 1536,
@@ -54,7 +57,7 @@ class SWEngine:
         self.device = resolve_device(device)
         if not ensure_native():
             raise RuntimeError(
-                "the native host library (acc_genomics_tpu/native) is "
+                "the native host library (acc_genomics_tpu_torch/native) is "
                 "unavailable: the host fallback needs it"
             )
         self.params = config.params()

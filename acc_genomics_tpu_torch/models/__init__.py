@@ -1,5 +1,6 @@
 from acc_genomics_tpu_torch.models.bwa_mem import (  # noqa: F401
     BwaEngines,
+    BwaMemDevicePipeline,
     BwaMemSeeding,
     SeedHit,
 )

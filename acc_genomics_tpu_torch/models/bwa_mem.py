@@ -1,21 +1,29 @@
-"""BWA-MEM seeding and extension composed on the host over the port's two
-engines.
+"""BWA-MEM seeding and extension on the port's engines.
 
-The port of ``acc_genomics_tpu/models/bwa_mem.py``'s ``BwaMemSeeding``
-(which cannot be imported without JAX): SMEM intervals of every read
+The port of ``acc_genomics_tpu/models/bwa_mem.py``.  ``BwaMemSeeding``
+composes on the host: SMEM intervals of every read
 (``SmemEngine.collect``), then the seeds each interval names (its first
 ``max_occ`` suffix-array rows, in row order), each with its reference
 span of the read's length plus ``flank`` on both sides, then left and
 right extension of every seed in one call (``ExtendEngine.extend_seeds``).
-Chaining and pairing stay with the caller.
+``BwaMemDevicePipeline`` gives the same results with the suffix array and
+the text resident on the card: intervals as arrays
+(``SmemEngine.collect_arrays``), a vectorised seed enumeration, and one
+launch of the fused extension step per call.  Chaining and pairing stay
+with the caller.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, NamedTuple, Sequence
 
 import numpy as np
+import torch
+
+from acc_genomics_tpu_torch.engine.packing import pack_rows
+from acc_genomics_tpu_torch.ops.extend.kernel import FUSED_KEYS, extend_seeds_fused
 
 
 @dataclasses.dataclass
@@ -81,4 +89,141 @@ class BwaMemSeeding:
                 width=res["width"],
                 occ=iv["s"],
             ))
+        return out
+
+
+def _no_seeds(host_idx):
+    empty = np.zeros(0, np.int32)
+    return (np.zeros((len(FUSED_KEYS), 0), np.int32), empty, (empty,) * 3, host_idx)
+
+
+class BwaMemDevicePipeline:
+    """Device-resident BWA-MEM seeding and extension.
+
+    The same results as :class:`BwaMemSeeding` (same seed enumeration, the
+    same extension semantics), with the suffix array (int32) and the text
+    (uint8, both strands) put on the engine's device once, here.  A call
+    costs the SMEM round trips of ``collect_arrays``, one H2D copy of the
+    seeds and the reads, one launch of ``extend_seeds_fused`` and one D2H
+    copy of its (8, N) result.  ``engine``: anything with ``.smem`` (an
+    ``SmemEngine`` with its index) and ``.extend`` (an ``ExtendEngine``),
+    such as ``GenomicsEngine`` or ``BwaEngines``.
+    """
+
+    def __init__(self, engine, max_occ: int = 8, flank: int = 100):
+        self.engine = engine
+        self.max_occ = max_occ
+        self.flank = flank
+        fm = engine.smem.fm
+        self.fm = fm
+        if fm.seq_len >= 2**31:
+            raise ValueError(f"text of {fm.seq_len}: int32 positions need < 2**31")
+        self.device = engine.smem.device
+        self.sa_dev = torch.from_numpy(fm.sa.astype(np.int32)).to(self.device)
+        self.text_dev = torch.from_numpy(np.ascontiguousarray(fm.text, np.uint8)).to(
+            self.device)
+        self.params = engine.extend.config.params()
+        self.stats = {"reads": 0, "seeds": 0, "device_calls": 0}
+        # per-phase anatomy: smem = collect_arrays (its launches and
+        # fetches), enum = the host seed enumeration and staging, extend =
+        # the H2D copy, the launch and the result's D2H copy
+        self.anatomy = dict(smem_s=0.0, enum_s=0.0, extend_s=0.0,
+                            h2d_bytes=0, d2h_bytes=0)
+
+    def reset_anatomy(self):
+        for k in self.anatomy:
+            self.anatomy[k] = 0.0 if k.endswith("_s") else 0
+
+    def _bucket(self, reads) -> int:
+        """The first read bucket that holds the longest read, else
+        ``seq_length`` (longer reads then go to the host route)."""
+        cfg = self.engine.smem.config
+        max_rlen = max((len(r) for r in reads), default=0)
+        return next((b for b in cfg.read_buckets if max_rlen <= b), cfg.seq_length)
+
+    def map_reads_arrays(self, reads: Sequence[np.ndarray]):
+        """-> (hits (8, N) int32 [qBeg qEndRel rBeg rEndRel score trueScore
+        width pos], seed readid (N,), seed meta (qbeg, slen, occ) arrays,
+        host_read_idx for the host route).  Seeds are in enumeration order:
+        read-major, interval order, occurrence ascending.  ``map_reads``
+        wraps it into SeedHit lists."""
+        t0 = time.perf_counter()
+        width = self._bucket(reads)
+        n_reads = len(reads)
+        self.stats["reads"] += n_reads
+        host_idx = [k for k, r in enumerate(reads) if len(r) > width]
+        empty = np.zeros(0, np.uint8)
+        rows_rm, rlens = pack_rows([empty if len(r) > width else r for r in reads],
+                                   width, n_reads)
+        mem, mem_n, overflow = self.engine.smem.collect_arrays(
+            np.ascontiguousarray(rows_rm.T), rlens)
+        host_idx.extend(np.flatnonzero(overflow).tolist())
+        t1 = time.perf_counter()
+        self.anatomy["smem_s"] += t1 - t0
+
+        # vectorised seed enumeration (the host model's order)
+        used = mem.shape[1]
+        if used == 0:
+            return _no_seeds(host_idx)
+        valid = np.arange(used)[None, :] < mem_n[:, None]  # (B, used)
+        s_bi = mem[2].T  # (B, used)
+        occ_f = np.where(valid, np.minimum(s_bi, self.max_occ), 0).reshape(-1)
+        tot = int(occ_f.sum())
+        self.stats["seeds"] += tot
+        if tot == 0:
+            return _no_seeds(host_idx)
+        seed_iv = np.repeat(np.arange(len(occ_f)), occ_f)
+        starts = np.cumsum(occ_f) - occ_f
+        j = np.arange(tot) - starts[seed_iv]
+        b_idx = (seed_iv // used).astype(np.int32)
+        rows = (mem[0].T.reshape(-1)[seed_iv] + j).astype(np.int32)
+        qbeg = mem[3].T.reshape(-1)[seed_iv].astype(np.int32)
+        slen = mem[4].T.reshape(-1)[seed_iv].astype(np.int32) - qbeg
+        occ = s_bi.reshape(-1)[seed_iv].astype(np.int32)
+
+        # one staged buffer: the int32 seed arrays and read lengths, then
+        # the read-major read matrix
+        n32 = 4 * tot + n_reads
+        staged = torch.empty(4 * n32 + rows_rm.size, dtype=torch.uint8,
+                             pin_memory=self.device.type == "cuda")
+        hv = staged.numpy()
+        hv[: 4 * n32].view(np.int32)[:] = np.concatenate([rows, qbeg, slen, b_idx, rlens])
+        hv[4 * n32:] = rows_rm.reshape(-1)
+        self.stats["device_calls"] += 1
+        t2 = time.perf_counter()
+        self.anatomy["enum_s"] += t2 - t1
+
+        dev = staged.to(self.device, non_blocking=True)
+        self.anatomy["h2d_bytes"] += staged.numel()
+        d32 = dev[: 4 * n32].view(torch.int32)
+        seeds = d32[: 4 * tot].view(4, tot)
+        out = extend_seeds_fused(
+            self.sa_dev, self.text_dev, dev[4 * n32:].view(n_reads, width),
+            d32[4 * tot:], seeds[0], seeds[1], seeds[2], seeds[3], self.flank,
+            self.params)
+        hits = out.cpu().numpy()
+        self.anatomy["d2h_bytes"] += hits.nbytes
+        self.anatomy["extend_s"] += time.perf_counter() - t2
+        return hits, b_idx, (qbeg, slen, occ), host_idx
+
+    def map_reads(self, reads: Sequence[np.ndarray]) -> List[List[SeedHit]]:
+        hits, rid, (qbeg, slen, occ), host_idx = self.map_reads_arrays(reads)
+        out: List[List[SeedHit]] = [[] for _ in reads]
+        host_set = set(host_idx)
+        qend = (qbeg + slen + hits[1]).tolist()
+        rbeg = (hits[7] + hits[2]).tolist()
+        rend = (hits[7] + slen + hits[3]).tolist()
+        for t, (r, q0, score, ts, w, oc) in enumerate(zip(
+                rid.tolist(), hits[0].tolist(), hits[4].tolist(), hits[5].tolist(),
+                hits[6].tolist(), occ.tolist())):
+            if r not in host_set:
+                out[r].append(SeedHit(read_id=r, qbeg=q0, qend=qend[t], rbeg=rbeg[t],
+                                      rend=rend[t], score=score, true_score=ts,
+                                      width=w, occ=oc))
+        if host_set:
+            order = sorted(host_set)
+            sub = BwaMemSeeding(self.engine, self.max_occ, self.flank).map_reads(
+                [reads[k] for k in order])
+            for r, hlist in zip(order, sub):
+                out[r] = [dataclasses.replace(h, read_id=r) for h in hlist]
         return out

@@ -7,8 +7,8 @@ haplotype with the PairHMM forward likelihood.  ``process_regions``
 coalesces all regions into one SW call and one flat PairHMM call.
 
 The engine argument is any object with an ``sw`` (``SWEngine``) and a
-``pairhmm`` (``PairHMMEngine``) attribute, such as ``HCEngines``; the
-``GenomicsEngine`` facade is not ported yet.
+``pairhmm`` (``PairHMMEngine``) attribute, such as ``HCEngines`` or the
+``GenomicsEngine`` facade (``engine/genomics_engine.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ import numpy as np
 
 from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
 from acc_genomics_tpu_torch.engine.sw_engine import SWEngine
-from acc_genomics_tpu_torch.shared import OVERHANG_SOFTCLIP, cat_u8
+from acc_genomics_tpu_torch.native import cat_u8
+from acc_genomics_tpu_torch.ops.sw.reference import OVERHANG_SOFTCLIP
 
 
 @dataclasses.dataclass

@@ -19,6 +19,14 @@
 //     rounds, and `w` reports the band of the last round that ran.
 // Outputs, (7, B) int32: score, qle, tle, gtle, gscore, max_off, w.
 //
+// A second front end, `sw_extend_fused`, replaces the device program
+// acc_genomics_tpu/models/bwa_mem.py `_extend_seeds_fused` (which reaches
+// the Pallas kernel through `sw_extend_pallas`): per seed, the SA lookup,
+// both extensions read in place from the resident reads and text, and the
+// clip resolution, into (8, N) int32.  Both front ends run the one
+// transcription below (`extend_one`), templated on how a task's query and
+// target codes are read.
+//
 // Design: one thread per task, the scalar loop in registers.  The TPU
 // kernel's per-block trip counts, sliding query window and Kogge-Stone F
 // ladder exist because 128 lanes run in lockstep; a thread per task needs
@@ -42,28 +50,32 @@ struct Params {
   int o_del, e_del, o_ins, e_ins, w, sc_match, sc_mismatch, sc_ambig;
 };
 
-__global__ void sw_extend_kernel(const uint8_t* __restrict__ query,
-                                 const uint8_t* __restrict__ target,
-                                 const int32_t* __restrict__ qlens,
-                                 const int32_t* __restrict__ tlens,
-                                 const int32_t* __restrict__ h0s,
-                                 const int32_t* __restrict__ max_inss,
-                                 const int32_t* __restrict__ max_dels,
-                                 int qcap, int tcap, int batch, Params p,
-                                 int32_t* __restrict__ eh,
-                                 int32_t* __restrict__ out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  const int64_t B = batch;
-  const int qlen = min(max(qlens[b], 0), qcap);
-  const int tlen = min(max(tlens[b], 0), tcap);
-  const int h0 = h0s[b];
-  const int max_ins = max_inss[b], max_del = max_dels[b];
+// Task readers: code of query column j / target row i.
+struct Strided {  // time-major (L, B) plane, this task's column
+  const uint8_t* p;
+  int64_t stride;
+  __device__ int operator()(int j) const { return p[j * stride]; }
+};
+struct Forward {  // p[j]
+  const uint8_t* p;
+  __device__ int operator()(int j) const { return p[j]; }
+};
+struct Reversed {  // p[-j]: a left extension reads its sequence backwards
+  const uint8_t* p;
+  __device__ int operator()(int j) const { return p[-j]; }
+};
+
+struct Extension {
+  int score, qle, tle, gtle, gscore, max_off, w;
+};
+
+// ksw_extend2 of one task: query codes q(0..qlen-1), target codes
+// t(0..tlen-1); eh_h / eh_e are the task's scratch rows with stride B.
+template <class Q, class T>
+__device__ Extension extend_one(Q q, T t, int qlen, int tlen, int h0,
+                                int max_ins, int max_del, const Params& p,
+                                int32_t* eh_h, int32_t* eh_e, int64_t B) {
   const int oe_del = p.o_del + p.e_del, oe_ins = p.o_ins + p.e_ins;
-  int32_t* eh_h = eh + b;
-  int32_t* eh_e = eh + (int64_t)(qcap + 2) * B + b;
-  const uint8_t* q = query + b;
-  const uint8_t* t = target + b;
   for (int j = 0; j <= qlen + 1; ++j) {
     eh_h[j * B] = 0;
     eh_e[j * B] = 0;
@@ -80,7 +92,7 @@ __global__ void sw_extend_kernel(const uint8_t* __restrict__ query,
     int h1_init = h0 - p.o_del;
     for (int i = 0; i < tlen; ++i) {
       int f = 0, m = 0, mj = -1;
-      const int t_i = t[i * B];
+      const int t_i = t(i);
       if (beg < i - aw1) beg = i - aw1;
       if (end > i + aw1 + 1) end = i + aw1 + 1;
       if (end > qlen) end = qlen;
@@ -94,7 +106,7 @@ __global__ void sw_extend_kernel(const uint8_t* __restrict__ query,
       int trail_zeros = 0, lead_zeros = 0;
       bool lead_run_over = false;
       for (int j = beg; j < end; ++j) {
-        const int q_j = q[j * B];
+        const int q_j = q(j);
         int e, M;
         if (i == 0) {
           e = 0;
@@ -151,13 +163,84 @@ __global__ void sw_extend_kernel(const uint8_t* __restrict__ query,
     reg_score = max_score;
     if (max_score == prev || max_off < ((band_w >> 1) + (band_w >> 2))) break;
   }
-  out[0 * B + b] = reg_score;
-  out[1 * B + b] = max_j + 1;
-  out[2 * B + b] = max_i + 1;
-  out[3 * B + b] = max_ie + 1;
-  out[4 * B + b] = gscore;
-  out[5 * B + b] = max_off;
-  out[6 * B + b] = band_w;
+  return Extension{reg_score, max_j + 1, max_i + 1, max_ie + 1, gscore,
+                   max_off, band_w};
+}
+
+__global__ void sw_extend_kernel(const uint8_t* __restrict__ query,
+                                 const uint8_t* __restrict__ target,
+                                 const int32_t* __restrict__ qlens,
+                                 const int32_t* __restrict__ tlens,
+                                 const int32_t* __restrict__ h0s,
+                                 const int32_t* __restrict__ max_inss,
+                                 const int32_t* __restrict__ max_dels,
+                                 int qcap, int tcap, int batch, Params p,
+                                 int32_t* __restrict__ eh,
+                                 int32_t* __restrict__ out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= batch) return;
+  const int64_t B = batch;
+  const int qlen = min(max(qlens[b], 0), qcap);
+  const int tlen = min(max(tlens[b], 0), tcap);
+  const Extension r = extend_one(
+      Strided{query + b, B}, Strided{target + b, B}, qlen, tlen, h0s[b],
+      max_inss[b], max_dels[b], p, eh + b, eh + (int64_t)(qcap + 2) * B + b, B);
+  out[0 * B + b] = r.score;
+  out[1 * B + b] = r.qle;
+  out[2 * B + b] = r.tle;
+  out[3 * B + b] = r.gtle;
+  out[4 * B + b] = r.gscore;
+  out[5 * B + b] = r.max_off;
+  out[6 * B + b] = r.w;
+}
+
+// The fused seed-extension step (acc_genomics_tpu/models/bwa_mem.py
+// `_extend_seeds_fused`), one thread a seed: the suffix-array lookup,
+// the left extension (read[qbeg-1-j] against text[pos-1-j], h0 = the seed
+// length), the right extension (read[qbeg+slen+j] against
+// text[pos+slen+j], h0 = the left score), both with max_ins = max_del =
+// the query length, then the pen_clip resolution.  The thread reads the
+// resident read matrix and text in place and only below each length, so
+// no span is copied and no guard flank is needed.
+__global__ void sw_extend_fused_kernel(
+    const int32_t* __restrict__ sa, const uint8_t* __restrict__ text,
+    int text_len, const uint8_t* __restrict__ reads, int read_cap,
+    const int32_t* __restrict__ rlens, const int32_t* __restrict__ rows,
+    const int32_t* __restrict__ qbegs, const int32_t* __restrict__ slens,
+    const int32_t* __restrict__ readids, int n, int flank, Params p,
+    int pen_clip, int32_t* __restrict__ eh, int32_t* __restrict__ out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= n) return;
+  const int64_t B = n;
+  const int pos = sa[rows[b]];
+  const int rid = readids[b];
+  const int qbeg = qbegs[b], slen = slens[b];
+  const int lq_len = qbeg;
+  const int rq_len = rlens[rid] - qbeg - slen;
+  const int lt_len = min(pos, qbeg + flank);
+  const int rt_len = min(text_len - pos - slen, rq_len + flank);
+  const uint8_t* read = reads + (int64_t)rid * read_cap;
+  int32_t* eh_h = eh + b;
+  int32_t* eh_e = eh + (int64_t)(read_cap + 2) * B + b;
+  const Extension l = extend_one(
+      Reversed{read + qbeg - 1}, Reversed{text + pos - 1},
+      min(max(lq_len, 0), read_cap), max(lt_len, 0), slen, lq_len, lq_len, p,
+      eh_h, eh_e, B);
+  const Extension r = extend_one(
+      Forward{read + qbeg + slen}, Forward{text + pos + slen},
+      min(max(rq_len, 0), read_cap), max(rt_len, 0), l.score, rq_len, rq_len,
+      p, eh_h, eh_e, B);
+  const bool l_clip = l.gscore <= 0 || l.gscore <= l.score - pen_clip;
+  const bool r_clip = r.gscore <= 0 || r.gscore <= r.score - pen_clip;
+  const int true_l = l_clip ? l.score : l.gscore;
+  out[0 * B + b] = l_clip ? qbeg - l.qle : 0;
+  out[1 * B + b] = r_clip ? r.qle : rq_len;
+  out[2 * B + b] = l_clip ? -l.tle : -l.gtle;
+  out[3 * B + b] = r_clip ? r.tle : r.gtle;
+  out[4 * B + b] = r.score;
+  out[5 * B + b] = true_l + (r_clip ? r.score : r.gscore) - l.score;
+  out[6 * B + b] = max(l.w, r.w);
+  out[7 * B + b] = pos;
 }
 
 }  // namespace
@@ -182,6 +265,30 @@ int sw_extend(const uint8_t* query, const uint8_t* target,
                      (cudaStream_t)stream>>>(query, target, qlen, tlen, h0,
                                              max_ins, max_del, qcap, tcap,
                                              batch, p, eh, out);
+  return (int)cudaGetLastError();
+}
+
+// sa (text_len + 1,) int32 suffix array; text (text_len,) uint8; reads
+// (n_reads, read_cap) uint8, read-major; rlens (n_reads,) int32; rows,
+// qbeg, slen, readid (n,) int32 per seed; eh (2, read_cap + 2, n) int32
+// scratch; out (8, n) int32: qBeg, qEndRel, rBeg, rEndRel, score,
+// trueScore, width, pos.  Returns a cudaError_t (0 on success).
+int sw_extend_fused(const int32_t* sa, const uint8_t* text, int text_len,
+                    const uint8_t* reads, int read_cap, const int32_t* rlens,
+                    const int32_t* rows, const int32_t* qbeg,
+                    const int32_t* slen, const int32_t* readid, int n,
+                    int flank, int o_del, int e_del, int o_ins, int e_ins,
+                    int w, int sc_match, int sc_mismatch, int sc_ambig,
+                    int pen_clip, int32_t* eh, int32_t* out, void* stream) {
+  if (read_cap <= 0 || n < 0 || w < 0 || text_len < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const Params p{o_del, e_del, o_ins, e_ins, w, sc_match, sc_mismatch, sc_ambig};
+  const int threads = 128;
+  sw_extend_fused_kernel<<<(n + threads - 1) / threads, threads, 0,
+                           (cudaStream_t)stream>>>(
+      sa, text, text_len, reads, read_cap, rlens, rows, qbeg, slen, readid, n,
+      flank, p, pen_clip, eh, out);
   return (int)cudaGetLastError();
 }
 

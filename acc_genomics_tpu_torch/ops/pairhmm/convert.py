@@ -1,9 +1,9 @@
-"""Carry the JAX package's PairHMM state across to torch tensors.
+"""Carry the PairHMM host state across to torch tensors.
 
 The "weights" of PairHMM are its quality tables (``PairHMMContext``) and
-the host packs (``PackedPairHMMBatch``, ``PackedPairHMMQuals``).  These
-functions put them on a device with no change of layout, so one pack
-feeds both packages.
+the host packs (``PackedPairHMMBatch``, ``PackedPairHMMQuals``), whose
+layout is the JAX package's.  These functions put them on a device with
+no change of layout, so one pack feeds both packages.
 """
 
 from __future__ import annotations
@@ -13,10 +13,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from acc_genomics_tpu_torch.shared import (
+from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext
+from acc_genomics_tpu_torch.ops.pairhmm.pack import (
     PackedPairHMMBatch,
     PackedPairHMMQuals,
-    PairHMMContext,
 )
 
 

@@ -26,7 +26,7 @@ import torch
 
 from acc_genomics_tpu_torch import build
 from acc_genomics_tpu_torch.device import check_tensor, same_device
-from acc_genomics_tpu_torch.shared import BASE_N, HAP_PAD
+from acc_genomics_tpu_torch.utils.convert import BASE_N, HAP_PAD
 
 PAD_MASK = 16  # one-hot channel of padded hap columns (never matches)
 MAX_ROWS = 256  # one thread per read row, one block per pair

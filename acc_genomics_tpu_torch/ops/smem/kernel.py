@@ -34,7 +34,7 @@ import torch
 from acc_genomics_tpu_torch import build
 from acc_genomics_tpu_torch.device import check_tensor, same_device
 from acc_genomics_tpu_torch.ops.smem.table import DeviceIndex
-from acc_genomics_tpu_torch.shared import DEFAULT_SMEM_PARAMS, SmemParams
+from acc_genomics_tpu_torch.ops.smem.reference import DEFAULT_SMEM_PARAMS, SmemParams
 
 CHAIN_MAX = 32  # kChainMax of csrc/smem_collect.cu: the largest chain cap
 

@@ -17,7 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from acc_genomics_tpu_torch.shared import FMIndex
+from acc_genomics_tpu_torch.ops.smem.index import FMIndex
 
 
 def probe_table(fm: FMIndex) -> np.ndarray:

@@ -17,7 +17,7 @@ import torch
 
 from acc_genomics_tpu_torch.ops.sw.kernel import sw_fill, sw_walk
 from acc_genomics_tpu_torch.ops.sw.walker import decode_elements
-from acc_genomics_tpu_torch.shared import (
+from acc_genomics_tpu_torch.ops.sw.reference import (
     DEFAULT_SW_PARAMS,
     SWParams,
     sw_align_oracle,

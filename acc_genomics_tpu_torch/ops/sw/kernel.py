@@ -34,7 +34,7 @@ import torch
 
 from acc_genomics_tpu_torch import build
 from acc_genomics_tpu_torch.device import check_tensor, same_device
-from acc_genomics_tpu_torch.shared import (
+from acc_genomics_tpu_torch.ops.sw.reference import (
     DEFAULT_SW_PARAMS,
     LOW_INIT,
     MATRIX_MIN_CUTOFF,

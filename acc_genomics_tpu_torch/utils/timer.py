@@ -1,0 +1,71 @@
+"""Lightweight profiling: RAII timers with global accumulation plus a
+throughput scoreboard.
+
+The counterpart of the reference's acc_lib/Timer.h PLACE_TIMER macros
+and the per-invocation GCUPS accounting done from OpenCL events
+(pairhmm/host/PairHMMFpga.cpp:90-96, smem/host/ocl.cpp:339-344).  Host
+clocks only: device time comes from CUDA events or torch.profiler.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from contextlib import ContextDecorator
+from typing import Dict
+
+_totals: Dict[str, float] = collections.defaultdict(float)
+_counts: Dict[str, int] = collections.defaultdict(int)
+
+
+class Timer(ContextDecorator):
+    def __init__(self, key: str):
+        self.key = key
+        self.elapsed = 0.0
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed = time.perf_counter() - self._t0
+        _totals[self.key] += self.elapsed
+        _counts[self.key] += 1
+        return False
+
+
+def timers() -> Dict[str, dict]:
+    return {
+        k: {"total_s": _totals[k], "count": _counts[k]}
+        for k in sorted(_totals)
+    }
+
+
+def reset_timers() -> None:
+    _totals.clear()
+    _counts.clear()
+
+
+class Scoreboard:
+    """Tracks average/peak throughput, like the reference test programs'
+    GCUPS/bandwidth scorecards (pairhmm/xlnx/pairhmm_test.cpp:440-463)."""
+
+    def __init__(self):
+        self.total_work = 0.0
+        self.total_time = 0.0
+        self.peak = 0.0
+
+    def record(self, work: float, seconds: float) -> float:
+        rate = work / seconds if seconds > 0 else 0.0
+        self.total_work += work
+        self.total_time += seconds
+        self.peak = max(self.peak, rate)
+        return rate
+
+    @property
+    def average(self) -> float:
+        return self.total_work / self.total_time if self.total_time else 0.0
+
+
+scoreboard = Scoreboard
+

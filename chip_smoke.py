@@ -21,14 +21,19 @@ oracle (with its host fallback, degenerate seeds and the BWA-SW record
 fixture); builds a 100 Mbp FM-index, checks the SMEM kernel against its
 plain version on 65,536 reads of 101 bp, drives SmemEngine on them
 against the native host engine and the oracle (with its edges); then
-drives BwaMemSeeding on the two engines over 2048 reads against the same
-composition over the native host engines and the oracle chain.
+drives BwaMemSeeding on GenomicsEngine over 2048 reads against the same
+composition over the native host engines and the oracle chain; checks the
+fused seed-extension kernel bit for bit against its plain version on the
+seeds of BwaMemDevicePipeline, drives the pipeline on the same reads
+against BwaMemSeeding, and checks its edges.
 Any failed check raises, so the exit code is non-zero.  The last line of
 standard output is one JSON object naming the device; the line before it
-lists each kernel of the main paths with its launches, error and times.
+lists each kernel of the main paths with its launches, error, times and
+bound (the larger of its bytes over the memory rate and its operations
+over the peak rate, computed from this run's inputs).
 
 Needs a CUDA card and the native host library (built with a C++ compiler
-at first use).  Imports only the port, never JAX.
+at first use).  Imports only the port, never JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -55,6 +60,18 @@ EXTEND_SOURCE = "acc_genomics_tpu_torch/ops/extend/csrc/sw_extend.cu"
 EXTEND_TPU = "acc_genomics_tpu/ops/extend/kernel.py:49"
 SMEM_SOURCE = "acc_genomics_tpu_torch/ops/smem/csrc/smem_collect.cu"
 SMEM_TPU = "acc_genomics_tpu/ops/smem/machine.py:267"
+FUSED_TPU = "acc_genomics_tpu/models/bwa_mem.py:109"
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM3 bytes/s, fp32 outside
+# the tensor cores, and int32 at half the fp32 rate (64 INT32 lanes an SM
+# against 128 FP32)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 33.5e12
+PAIRHMM_OPS_PER_CELL = 13  # fp32 (the JAX cost estimate, band_kernel.py:275)
+SW_OPS_PER_CELL = 10  # int32: H, E, F maxima, the gap terms, the btrack code
+EXTEND_OPS_PER_CELL = 12  # int32: M + sc, the h/e/f maxima, the row max, zero runs
+SMEM_OPS_PER_PROBE = 32  # int32: two occ counts (masks, popcounts, sums) an extension
+SMEM_PROBE_BYTES = 2 * 32  # two 32-byte probe-table rows an extension
 SMEM_GENOME = 100_000_000  # bases: drivers/smem_driver.py's genome scale
 SMEM_READS = 65536  # bench_smem's lane count, reads of 101
 EXTEND_SEEDS = 4096  # bench_extend_engine's seeds
@@ -113,6 +130,21 @@ def cuda_time_ms(fn, repeats: int = 7, warm: bool = True) -> float:
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
     return statistics.median(times)
+
+
+def bound(bytes_moved: float, ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate."""
+    b_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / ops_per_s * 1e3
+    return {"bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "library_ms": None}
+
+
+def nbytes(*tensors) -> int:
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
 
 
 def loglik(raw: np.ndarray, log10_ic) -> np.ndarray:
@@ -192,7 +224,7 @@ def matrix_pair_args(f):
 
 
 def oracle(tcs) -> np.ndarray:
-    from acc_genomics_tpu_torch.shared import pairhmm_loglik_oracle
+    from acc_genomics_tpu_torch.ops.pairhmm.reference import pairhmm_loglik_oracle
 
     return np.array([pairhmm_loglik_oracle(t["rs"], t["q"], t["i"], t["d"],
                                            t["c"], t["hap"]) for t in tcs])
@@ -215,7 +247,8 @@ def sw_bench_batch(dev):
 
     from acc_genomics_tpu_torch.engine.sw_engine import chunk_pairs
     from acc_genomics_tpu_torch.ops.sw.batch import pack_planes
-    from acc_genomics_tpu_torch.shared import SWConfig, gen_sw_batch
+    from acc_genomics_tpu_torch.config import SWConfig
+    from acc_genomics_tpu_torch.io.synth import gen_sw_batch
 
     ref, alts = gen_sw_batch(np.random.default_rng(0), SW_BENCH_PAIRS, ref_len=286)
     cfg = SWConfig()
@@ -245,6 +278,14 @@ def sw_kernels_vs_plain(chunks, card: str):
     from acc_genomics_tpu_torch.ops.sw import kernel as SK
 
     cells = sum(int((rl.long() * al.long()).sum()) for _, _, rl, al in chunks)
+    # bytes each kernel must move: the fill reads the planes and lengths and
+    # writes 2 B of backtrack a real cell plus the last row and column; the
+    # walk reads those and at least one backtrack cell a step of a walk of
+    # max(ref, alt) steps, and writes the packed elements
+    edge = sum(nbytes(*c) + 4 * c[0].shape[0] * (c[0].shape[1] + c[1].shape[1] + 1)
+               for c in chunks)
+    fill_bound = bound(2 * cells + edge, SW_OPS_PER_CELL * cells, INT32_OPS_PER_S)
+    steps = sum(int(torch.maximum(rl, al).long().sum()) for _, _, rl, al in chunks)
     fill_err = walk_err = 0
     for strategy in (0, 1, 2, 3):
         for ref, alt, rl, al in chunks:
@@ -259,6 +300,7 @@ def sw_kernels_vs_plain(chunks, card: str):
             fill_err = max(fill_err, err)
             packed = SK.sw_walk(*got, rl, al, strategy)
             packed_plain = SK.sw_walk_plain(*want, rl, al, strategy)
+            walk_out = nbytes(packed)
             walk_err = max(walk_err, int((packed.int() - packed_plain.int()).abs().max()))
             del got, want
         say(f"sw bench strategy {strategy}: {len(chunks)} chunks of "
@@ -274,10 +316,13 @@ def sw_kernels_vs_plain(chunks, card: str):
     walk = lambda fn: [fn(*f, c[2], c[3], 0) for f, c in zip(fills, chunks)]
     walk_ms = cuda_time_ms(lambda: walk(SK.sw_walk))
     walk_plain_ms = cuda_time_ms(lambda: walk(SK.sw_walk_plain), repeats=3, warm=False)
+    walk_bound = bound(edge + 2 * steps + len(chunks) * walk_out, 0, INT32_OPS_PER_S)
     say(f"sw bench kernels, {cells} cells: sw_fill kernel_ms={fill_ms:.4f} "
-        f"plain_ms={fill_plain_ms:.4f} kernel_gcups={cells / (fill_ms * 1e-3) / 1e9:.3f}; "
-        f"sw_walk kernel_ms={walk_ms:.4f} plain_ms={walk_plain_ms:.4f} [{card}]")
-    return fill_err, fill_ms, fill_plain_ms, walk_err, walk_ms, walk_plain_ms
+        f"plain_ms={fill_plain_ms:.4f} kernel_gcups={cells / (fill_ms * 1e-3) / 1e9:.3f} "
+        f"bound {fill_bound}; sw_walk kernel_ms={walk_ms:.4f} plain_ms={walk_plain_ms:.4f} "
+        f"bound {walk_bound} [{card}]")
+    return (fill_err, fill_ms, fill_plain_ms, fill_bound, walk_err, walk_ms, walk_plain_ms,
+            walk_bound)
 
 
 def sw_engine_main_path(ref, alts, n_chunks: int, card: str) -> dict:
@@ -288,7 +333,8 @@ def sw_engine_main_path(ref, alts, n_chunks: int, card: str) -> dict:
 
     from acc_genomics_tpu_torch.engine.sw_engine import SWEngine
     from acc_genomics_tpu_torch.ops.sw import kernel as SK
-    from acc_genomics_tpu_torch.shared import native, sw_align_oracle
+    from acc_genomics_tpu_torch import native
+    from acc_genomics_tpu_torch.ops.sw.reference import sw_align_oracle
 
     refs = [ref] * len(alts)
     eng = SWEngine(device="cuda")
@@ -326,12 +372,10 @@ def sw_edges():
     from acc_genomics_tpu_torch.engine.sw_engine import SWEngine
     from acc_genomics_tpu_torch.ops.sw import kernel as SK
     from acc_genomics_tpu_torch.ops.sw.batch import sw_align_batch_launch
-    from acc_genomics_tpu_torch.shared import (
-        SWConfig,
-        gen_sw_batch,
-        native,
-        sw_align_oracle,
-    )
+    from acc_genomics_tpu_torch import native
+    from acc_genomics_tpu_torch.config import SWConfig
+    from acc_genomics_tpu_torch.io.synth import gen_sw_batch
+    from acc_genomics_tpu_torch.ops.sw.reference import sw_align_oracle
     import torch
 
     rng = np.random.default_rng(5)
@@ -393,7 +437,8 @@ def hc_phases(card: str):
     from acc_genomics_tpu_torch.models import HaplotypeCallerCore, HCEngines
     from acc_genomics_tpu_torch.ops.pairhmm import kernel as K
     from acc_genomics_tpu_torch.ops.sw import kernel as SK
-    from acc_genomics_tpu_torch.shared import native, pairhmm_loglik_oracle
+    from acc_genomics_tpu_torch import native
+    from acc_genomics_tpu_torch.ops.pairhmm.reference import pairhmm_loglik_oracle
 
     for n_regions in HC_SIZES:
         rng = np.random.default_rng(0)
@@ -452,18 +497,18 @@ def sw_phases(card: str) -> list:
     import torch
 
     ref, alts, chunks = sw_bench_batch(torch.device("cuda", 0))
-    fill_err, fill_ms, fill_plain_ms, walk_err, walk_ms, walk_plain_ms = (
-        sw_kernels_vs_plain(chunks, card))
+    (fill_err, fill_ms, fill_plain_ms, fill_bound, walk_err, walk_ms, walk_plain_ms,
+     walk_bound) = sw_kernels_vs_plain(chunks, card)
     launches = sw_engine_main_path(ref, alts, len(chunks), card)
     del chunks
     sw_edges()
     return [
         {"name": "sw_fill", "route": "cuda", "source": SW_FILL_SOURCE,
          "replaces": SW_FILL_TPU, "launches": launches.get("sw_fill", 0),
-         "max_abs_err": fill_err, "ms": fill_ms, "plain_ms": fill_plain_ms},
+         "max_abs_err": fill_err, "ms": fill_ms, "plain_ms": fill_plain_ms, **fill_bound},
         {"name": "sw_walk", "route": "cuda", "source": SW_WALK_SOURCE,
          "replaces": SW_WALK_TPU, "launches": launches.get("sw_walk", 0),
-         "max_abs_err": walk_err, "ms": walk_ms, "plain_ms": walk_plain_ms},
+         "max_abs_err": walk_err, "ms": walk_ms, "plain_ms": walk_plain_ms, **walk_bound},
     ]
 
 
@@ -530,7 +575,7 @@ def extend_bench_seeds(n: int = EXTEND_SEEDS):
 def host_extend_seeds(seeds, params):
     """ExtendEngine's records computed over the native host engine."""
     from acc_genomics_tpu_torch.engine.extend_engine import resolve_seeds, seed_tasks
-    from acc_genomics_tpu_torch.shared import native
+    from acc_genomics_tpu_torch import native
 
     lq, lt, rq, rt = seed_tasks(seeds)
     lres = native.sw_extend_host(lq, lt, [s["len"] for s in seeds], params)
@@ -539,7 +584,7 @@ def host_extend_seeds(seeds, params):
 
 
 def oracle_record(s, params):
-    from acc_genomics_tpu_torch.shared import extend_seed_oracle
+    from acc_genomics_tpu_torch.ops.extend.reference import extend_seed_oracle
 
     return extend_seed_oracle(s["read"], s["rseq"], s["qbeg"], s["rbeg_off"], s["len"], params)
 
@@ -552,14 +597,18 @@ def extend_phases(card: str, dev) -> dict:
 
     from acc_genomics_tpu_torch.engine.extend_engine import ExtendEngine
     from acc_genomics_tpu_torch.ops.extend import kernel as EK
-    from acc_genomics_tpu_torch.shared import read_results, read_task_file, run_tasks
+    from acc_genomics_tpu_torch.io.bwasw_records import (
+        read_results,
+        read_task_file,
+        run_tasks,
+    )
 
     # -- 10. kernel vs plain --------------------------------------------------
     err = 0
     bench = None
     for name, q, t, ql, tl, h0 in extend_batches(dev):
         got = EK.sw_extend_rows(q, t, ql, tl, h0, ql, ql)
-        want = EK.sw_extend_plain(q, t, ql, tl, h0, ql, ql)
+        want, cells = EK.sw_extend_plain(q, t, ql, tl, h0, ql, ql, count_cells=True)
         torch.cuda.synchronize()
         e = int((got.long() - want.long()).abs().max())
         err = max(err, e)
@@ -572,12 +621,14 @@ def extend_phases(card: str, dev) -> dict:
             check(rounds2 > q.shape[1] // 2, "the round-2 batch ran round 2 on few lanes")
         if name == "bench":
             bench = (q, t, ql, tl, h0)
+            ext_bound = bound(nbytes(q, t, ql, tl, h0, got), EXTEND_OPS_PER_CELL * int(cells),
+                              INT32_OPS_PER_S)
     q, t, ql, tl, h0 = bench
     k_ms = cuda_time_ms(lambda: EK.sw_extend_rows(q, t, ql, tl, h0, ql, ql))
     p_ms = cuda_time_ms(lambda: EK.sw_extend_plain(q, t, ql, tl, h0, ql, ql),
                         repeats=3, warm=False)
     say(f"extend bench batch: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-        f"kernel_seeds_per_s={q.shape[1] / (k_ms * 1e-3):.1f} [{card}]")
+        f"kernel_seeds_per_s={q.shape[1] / (k_ms * 1e-3):.1f} bound {ext_bound} [{card}]")
 
     # -- 11. ExtendEngine main path --------------------------------------------
     _, seeds = extend_bench_seeds()
@@ -636,7 +687,7 @@ def extend_phases(card: str, dev) -> dict:
         f"{len(want)} BWA-SW fixture records: all exact")
     return {"name": "sw_extend", "route": "cuda", "source": EXTEND_SOURCE,
             "replaces": EXTEND_TPU, "launches": launches, "max_abs_err": err,
-            "ms": k_ms, "plain_ms": p_ms}
+            "ms": k_ms, "plain_ms": p_ms, **ext_bound}
 
 
 def pack_reads(reads, rows: int):
@@ -654,7 +705,7 @@ class HostSmem:
         self.fm, self.params = fm, params
 
     def collect(self, reads):
-        from acc_genomics_tpu_torch.shared import native
+        from acc_genomics_tpu_torch import native
 
         return native.smem_collect_host(self.fm, reads, self.params)
 
@@ -674,7 +725,8 @@ def oracle_hits(fm, read, max_occ, flank, smem_params, ext_params):
     suffix-array positions in row order (at most max_occ), seed
     extension oracle; (qbeg, qend, rbeg, rend, score, trueScore, width,
     occ) per seed."""
-    from acc_genomics_tpu_torch.shared import extend_seed_oracle, mem_collect_intv_oracle
+    from acc_genomics_tpu_torch.ops.extend.reference import extend_seed_oracle
+    from acc_genomics_tpu_torch.ops.smem.reference import mem_collect_intv_oracle
 
     out = []
     for iv in mem_collect_intv_oracle(fm, read, smem_params):
@@ -692,26 +744,27 @@ def oracle_hits(fm, read, max_occ, flank, smem_params, ext_params):
 
 
 def smem_bwa_phases(card: str, dev, extend_entry: dict) -> dict:
-    """Phases 12-13 over one 100 Mbp index: the SMEM kernel against its
-    plain version, SmemEngine on the card and its edges, then
-    BwaMemSeeding on the port's two engines.  Adds phase 13's extension
-    launches to ``extend_entry`` and returns the SMEM kernels-line entry."""
+    """Phases 12-14 over one 100 Mbp index: the SMEM kernel against its
+    plain version, SmemEngine on the card and its edges, BwaMemSeeding on
+    GenomicsEngine, then BwaMemDevicePipeline (``pipeline_phase``).  Adds
+    phase 13's extension launches to ``extend_entry`` and returns the
+    kernels-line entries of the SMEM and the fused extension kernels."""
     import torch
 
-    from acc_genomics_tpu_torch.engine.extend_engine import ExtendEngine
+    from acc_genomics_tpu_torch.engine.genomics_engine import GenomicsEngine
     from acc_genomics_tpu_torch.engine.smem_engine import SmemEngine
     from acc_genomics_tpu_torch.models import BwaEngines, BwaMemSeeding
     from acc_genomics_tpu_torch.ops.extend import kernel as EK
     from acc_genomics_tpu_torch.ops.smem import kernel as MK
     from acc_genomics_tpu_torch.ops.smem.table import DeviceIndex
-    from acc_genomics_tpu_torch.shared import (
-        FMIndex,
-        SmemConfig,
+    from acc_genomics_tpu_torch import native
+    from acc_genomics_tpu_torch.config import SmemConfig
+    from acc_genomics_tpu_torch.io.synth import (
         gen_reference_with_repeats,
         gen_smem_reads,
-        mem_collect_intv_oracle,
-        native,
     )
+    from acc_genomics_tpu_torch.ops.smem.index import FMIndex
+    from acc_genomics_tpu_torch.ops.smem.reference import mem_collect_intv_oracle
 
     # -- 12. index, kernel vs plain ---------------------------------------------
     rng = np.random.default_rng(0)
@@ -733,6 +786,9 @@ def smem_bwa_phases(card: str, dev, extend_entry: dict) -> dict:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+    probes = int(got[3].long().sum())
+    smem_bound = bound(SMEM_PROBE_BYTES * probes + nbytes(seq_d, lens_d, *got),
+                       SMEM_OPS_PER_PROBE * probes, INT32_OPS_PER_S)
     n_flag = int(got[2].sum())
     n_iv = int(got[1].sum())
     say(f"smem kernel vs plain, {len(reads)} reads: max_abs_err={err} over mem, counts, "
@@ -741,7 +797,8 @@ def smem_bwa_phases(card: str, dev, extend_entry: dict) -> dict:
     check(err == 0, "SMEM kernel vs plain: not exact")
     k_ms = cuda_time_ms(lambda: MK.smem_collect(idx, seq_d, lens_d, params))
     say(f"smem bench batch: kernel_ms={k_ms:.4f} plain_ms={plain_ms:.4f} (one call, "
-        f"host clock) kernel_reads_per_s={len(reads) / (k_ms * 1e-3):.1f} [{card}]")
+        f"host clock) kernel_reads_per_s={len(reads) / (k_ms * 1e-3):.1f} bound "
+        f"{smem_bound} [{card}]")
     del got, want
 
     # -- 12. SmemEngine main path -----------------------------------------------
@@ -789,9 +846,11 @@ def smem_bwa_phases(card: str, dev, extend_entry: dict) -> dict:
         f"flag {tight.stats['overflow_reruns']} of {len(edge) - 1} device reads, all "
         f"rerun exact")
 
-    # -- 13. BwaMemSeeding --------------------------------------------------------
+    # -- 13. BwaMemSeeding on GenomicsEngine --------------------------------------
     bwa_reads = gen_smem_reads(rng, genome, BWA_READS, read_len=101)
-    engines = BwaEngines(eng, ExtendEngine(device=dev))
+    del eng
+    engines = GenomicsEngine(device=dev)
+    engines.set_index(fm)
     seeding = BwaMemSeeding(engines, max_occ=4, flank=100)
     first = seeding.map_reads(bwa_reads)  # warm-up
     torch.cuda.synchronize()
@@ -823,9 +882,121 @@ def smem_bwa_phases(card: str, dev, extend_entry: dict) -> dict:
     say(f"BwaMemSeeding == native host composition on {len(bwa_reads)} reads, == oracle "
         f"chain on 16: ok")
     extend_entry["launches"] += bwa_launches.get("sw_extend", 0)
-    return {"name": "smem_collect", "route": "cuda", "source": SMEM_SOURCE,
-            "replaces": SMEM_TPU, "launches": smem_launches + bwa_launches.get("smem_collect", 0),
-            "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms}
+    smem_entry = {"name": "smem_collect", "route": "cuda", "source": SMEM_SOURCE,
+                  "replaces": SMEM_TPU,
+                  "launches": smem_launches + bwa_launches.get("smem_collect", 0),
+                  "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms, **smem_bound}
+
+    fused_entry = pipeline_phase(card, engines, fm, genome, bwa_reads, first, smem_entry)
+    return smem_entry, fused_entry
+
+
+def pipeline_phase(card: str, engines, fm, genome, bwa_reads, seeding_hits,
+                   smem_entry: dict) -> dict:
+    """Phase 14 on phase 13's index and reads (max_occ 4, flank 100): the
+    fused seed-extension kernel against its plain version on the
+    pipeline's own seed arrays, BwaMemDevicePipeline against phase 13's
+    BwaMemSeeding result, its reads/s and its edges.  Adds the pipeline's
+    SMEM launches to ``smem_entry``; returns the fused kernel's entry."""
+    import torch
+
+    import acc_genomics_tpu_torch.models.bwa_mem as bwa_module
+    from acc_genomics_tpu_torch.config import SmemConfig
+    from acc_genomics_tpu_torch.engine.smem_engine import SmemEngine
+    from acc_genomics_tpu_torch.models import BwaEngines, BwaMemDevicePipeline, BwaMemSeeding
+    from acc_genomics_tpu_torch.ops.extend import kernel as EK
+    from acc_genomics_tpu_torch.ops.smem import kernel as MK
+
+    t0 = time.perf_counter()
+    pipe = BwaMemDevicePipeline(engines, max_occ=4, flank=100)
+    torch.cuda.synchronize()
+    say(f"BwaMemDevicePipeline: SA ({pipe.sa_dev.numel()} int32) and text "
+        f"({pipe.text_dev.numel()} uint8) on the card in {time.perf_counter() - t0:.2f} s")
+
+    # -- 14. fused kernel vs plain, on the pipeline's own seeds -------------------
+    calls = []
+    with capture_calls(bwa_module, "extend_seeds_fused", calls):
+        hits0 = pipe.map_reads_arrays(bwa_reads)[0]
+    args, kw = calls[0]
+    got = EK.extend_seeds_fused(*args, **kw)
+    want, cells = EK.extend_seeds_fused_plain(*args, **kw, count_cells=True)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    n_seeds = got.shape[1]
+    say(f"sw_extend_fused vs plain: {n_seeds} seeds, {int(cells)} band cells; "
+        f"max_abs_err={err} over 8 rows; pipeline's own launch equal: "
+        f"{bool(np.array_equal(hits0, got.cpu().numpy()))}")
+    check(n_seeds > 0 and err == 0, "fused kernel vs plain: not bit-exact")
+    check(np.array_equal(hits0, got.cpu().numpy()), "fused kernel: repeated launch differs")
+    k_ms = cuda_time_ms(lambda: EK.extend_seeds_fused(*args, **kw))
+    p_ms = cuda_time_ms(lambda: EK.extend_seeds_fused_plain(*args, **kw), repeats=3,
+                        warm=False)
+    sa, text, _, rlens, rows, qbeg, slen, readid, flank = args[:9]
+    # bytes the step must move: each seed's SA entry, its query and target
+    # spans (read once each), the seed arrays and read lengths, the output
+    pos = sa[rows.long()].long()
+    rq_len = (rlens[readid.long()] - qbeg - slen).long()
+    lt_len = torch.minimum(pos, qbeg.long() + flank)
+    rt_len = torch.minimum(text.numel() - pos - slen.long(), rq_len + flank)
+    span_bytes = sum(int(x.clamp(min=0).sum()) for x in (qbeg.long(), rq_len, lt_len, rt_len))
+    fused_bound = bound(4 * n_seeds + span_bytes
+                        + nbytes(rlens, rows, qbeg, slen, readid, want),
+                        EXTEND_OPS_PER_CELL * int(cells), INT32_OPS_PER_S)
+    say(f"sw_extend_fused: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+        f"kernel_seeds_per_s={n_seeds / (k_ms * 1e-3):.1f} bound {fused_bound} [{card}]")
+    del got, want
+
+    # -- 14. BwaMemDevicePipeline main path ----------------------------------------
+    first = pipe.map_reads(bwa_reads)
+    check(first == seeding_hits, "BwaMemDevicePipeline vs BwaMemSeeding")
+    say(f"BwaMemDevicePipeline == BwaMemSeeding on {len(bwa_reads)} reads "
+        f"({sum(map(len, first))} seed hits): ok")
+    torch.cuda.synchronize()
+    pipe.reset_anatomy()
+    MK.LAUNCHES.clear()
+    EK.LAUNCHES.clear()
+    times, results = [], []
+    for _ in range(HC_REPEATS):
+        t0 = time.perf_counter()
+        results.append(pipe.map_reads_arrays(bwa_reads))
+        times.append(time.perf_counter() - t0)
+    launches = {**MK.LAUNCHES, **EK.LAUNCHES}
+    med = statistics.median(times)
+    anatomy = {k: round(v / HC_REPEATS, 6) if k.endswith("_s") else v // HC_REPEATS
+               for k, v in pipe.anatomy.items()}
+    say(f"BwaMemDevicePipeline.map_reads_arrays: {len(bwa_reads)} reads, {n_seeds} seeds a "
+        f"call; reads_per_s median={len(bwa_reads) / med:.1f} "
+        f"min={len(bwa_reads) / max(times):.1f} max={len(bwa_reads) / min(times):.1f} "
+        f"(n={HC_REPEATS}); anatomy per call {anatomy}; launches {launches} [{card}]")
+    check(launches.get("sw_extend_fused", 0) == HC_REPEATS
+          and launches.get("smem_collect", 0) > 0, f"pipeline launches {launches}")
+    check(all(np.array_equal(r[0], hits0) and r[3] == results[0][3] for r in results),
+          "repeated pipeline calls differ")
+    smem_entry["launches"] += launches.get("smem_collect", 0)
+
+    # -- 14. edges ---------------------------------------------------------------
+    edge = [genome[:70].copy(), genome[-70:].copy(), genome[5000:5300].copy(),
+            np.full(101, 4, np.uint8)] + bwa_reads[:200]
+    wide = BwaMemDevicePipeline(engines, max_occ=4, flank=300)
+    got = wide.map_reads(edge)
+    check(got == BwaMemSeeding(engines, max_occ=4, flank=300).map_reads(edge),
+          "pipeline edges (text ends, flank 300, past seq_length, all-N) vs BwaMemSeeding")
+    check(got[0] and got[1] and got[2] and got[3] == [], "edge reads' hits")
+    del wide
+    tight = BwaEngines(SmemEngine(fm, SmemConfig(curr_cap=6, mem_cap=4), device=pipe.device),
+                       engines.extend)
+    tpipe = BwaMemDevicePipeline(tight, max_occ=4, flank=100)
+    _, _, _, host_idx = tpipe.map_reads_arrays(edge)
+    got = tpipe.map_reads(edge)
+    check(got == BwaMemSeeding(tight, max_occ=4, flank=100).map_reads(edge)
+          and len(host_idx) > 1, "pipeline with SMEM caps 6/4 vs BwaMemSeeding")
+    say(f"pipeline edges: reads at both text ends with flank 300, a 300 bp read, an "
+        f"all-N read: == BwaMemSeeding; caps 6/4 send {len(host_idx)} of {len(edge)} "
+        f"reads to the host route, == BwaMemSeeding")
+    del tpipe, tight, pipe
+    return {"name": "sw_extend_fused", "route": "cuda", "source": EXTEND_SOURCE,
+            "replaces": FUSED_TPU, "launches": launches.get("sw_extend_fused", 0),
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **fused_bound}
 
 
 def main() -> int:
@@ -852,19 +1023,24 @@ def main() -> int:
         context_tables,
         quals_to_torch,
     )
-    from acc_genomics_tpu_torch.shared import (
-        PairHMMConfig,
-        PairHMMContext,
-        gen_pairhmm_input,
-        gen_pairhmm_pairs,
-        native,
-        pack_pairhmm_batch,
-        pack_pairhmm_quals,
+    from acc_genomics_tpu_torch import native
+    from acc_genomics_tpu_torch.config import PairHMMConfig
+    from acc_genomics_tpu_torch.io.pairhmm_text import (
         read_pairhmm_input,
         read_pairhmm_output,
     )
+    from acc_genomics_tpu_torch.io.synth import gen_pairhmm_input, gen_pairhmm_pairs
+    from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext
+    from acc_genomics_tpu_torch.ops.pairhmm.pack import (
+        pack_pairhmm_batch,
+        pack_pairhmm_quals,
+    )
 
-    check("jax" not in sys.modules, "the port imported jax")
+    check(not [m for m in sys.modules if m == "jax" or m.startswith("jax.")],
+          "the port imported jax")
+    check(not [m for m in sys.modules
+               if m == "acc_genomics_tpu" or m.startswith("acc_genomics_tpu.")],
+          "the port imported the JAX package")
 
     # -- 1. environment ----------------------------------------------------
     card = card_line()
@@ -888,7 +1064,7 @@ def main() -> int:
     for built in libs:
         say(f"build: {built.path} built={built.built} nvcc_s={built.seconds:.2f}")
         for line in built.log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line or "stack" in line:
+            if any(k in line for k in ("entry function", "registers", "spill", "stack")):
                 say(f"  ptxas: {line.strip()}")
     say(f"build wall_s={wall:.2f}")
 
@@ -1003,9 +1179,12 @@ def main() -> int:
                                  for a, kw in launched], repeats=1, warm=False)
     shapes = sorted({(a[4].shape[0], a[5].shape[0] - a[4].shape[0], a[4].shape[1])
                      for a, _ in launched})
+    # the byte planes and tables read once, one fp32 result a pair written
+    pairhmm_bound = bound(sum(nbytes(*a, *kw.values()) for a, kw in launched) + 4 * n_pairs,
+                          PAIRHMM_OPS_PER_CELL * batch_cells, FP32_OPS_PER_S)
     say(f"engine buckets (rows, cols, pairs) {shapes}: kernel_ms={k_ms:.4f} "
         f"plain_ms={p_ms:.4f} kernel_gcups={batch_cells / (k_ms * 1e-3) / 1e9:.3f} "
-        f"[{card}]")
+        f"bound {pairhmm_bound} [{card}]")
 
     tcs = [dict(hap=h, **r) for r in reads for h in haps]
     raw_host = native.pairhmm_forward(tcs, np.float32)
@@ -1089,18 +1268,24 @@ def main() -> int:
     pairhmm_entry = {
         "name": "pairhmm_forward_from_quals", "route": "cuda", "source": CU_SOURCE,
         "replaces": TPU_KERNEL, "launches": launches, "max_abs_err": eng_err,
-        "ms": k_ms, "plain_ms": p_ms,
+        "ms": k_ms, "plain_ms": p_ms, **pairhmm_bound,
     }
 
     # -- 6-9. Smith-Waterman and HaplotypeCaller ---------------------------------
     sw_entries = sw_phases(card)
     hc_phases(card)
 
-    # -- 10-13. BWA-MEM: extension, SMEM, BwaMemSeeding ----------------------------
+    # -- 10-14. BWA-MEM: extension, SMEM, BwaMemSeeding, BwaMemDevicePipeline ------
     extend_entry = extend_phases(card, dev)
-    smem_entry = smem_bwa_phases(card, dev, extend_entry)
+    smem_entry, fused_entry = smem_bwa_phases(card, dev, extend_entry)
 
-    say(json.dumps({"kernels": [pairhmm_entry, *sw_entries, extend_entry, smem_entry]}))
+    check(not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+               or m == "acc_genomics_tpu" or m.startswith("acc_genomics_tpu.")],
+          "a phase imported jax or the JAX package")
+    entries = [pairhmm_entry, *sw_entries, extend_entry, smem_entry, fused_entry]
+    check(all(e["launches"] > 0 for e in entries),
+          f"a kernel no main path launched: {[(e['name'], e['launches']) for e in entries]}")
+    say(json.dumps({"kernels": entries}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

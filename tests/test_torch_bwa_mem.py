@@ -18,6 +18,7 @@ from acc_genomics_tpu.ops.smem.reference import mem_collect_intv_oracle
 from acc_genomics_tpu_torch.engine.extend_engine import ExtendEngine
 from acc_genomics_tpu_torch.engine.smem_engine import SmemEngine
 from acc_genomics_tpu_torch.models import BwaEngines, BwaMemSeeding, SeedHit
+from acc_genomics_tpu_torch.ops.smem.index import FMIndex
 
 
 def oracle_hits(fm, read, max_occ, flank):
@@ -51,7 +52,8 @@ def test_map_reads_matches_jax_and_oracle(max_occ, flank, rng):
     jax_eng = GenomicsEngine()
     fm = jax_eng.load_reference(genome)
     want = JaxSeeding(jax_eng, max_occ=max_occ, flank=flank).map_reads(reads)
-    engines = BwaEngines(SmemEngine(fm, device="cpu"), ExtendEngine(device="cpu"))
+    engines = BwaEngines(SmemEngine(FMIndex.build(genome), device="cpu"),
+                         ExtendEngine(device="cpu"))
     got = BwaMemSeeding(engines, max_occ=max_occ, flank=flank).map_reads(reads)
     assert [_hits(h) for h in got] == [_hits(h) for h in want]
     assert all(isinstance(h, SeedHit) for hs in got for h in hs)

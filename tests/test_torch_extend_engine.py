@@ -8,16 +8,18 @@ Records are exact, against the JAX engine, ``extend_seed_oracle`` and the
 BWA-SW golden record file, and the ``stats`` counters equal.
 """
 
+import dataclasses
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from acc_genomics_tpu.config import ExtendConfig
+from acc_genomics_tpu.config import ExtendConfig as JaxExtendConfig
 from acc_genomics_tpu.engine.extend_engine import ExtendEngine as JaxEngine
 from acc_genomics_tpu.io import bwasw_records as br
 from acc_genomics_tpu.ops.extend.reference import extend_seed_oracle
+from acc_genomics_tpu_torch.config import ExtendConfig
 from acc_genomics_tpu_torch.engine import extend_engine as engine_module
 from acc_genomics_tpu_torch.engine.extend_engine import ExtendEngine
 from acc_genomics_tpu_torch.ops.extend import kernel as K
@@ -74,7 +76,7 @@ def test_extend_seeds_matches_jax_engine_and_oracle(case, rng):
     make, cfg = CASES[case]
     seeds = make(rng)
     port = ExtendEngine(cfg, device="cpu")
-    jax_eng = JaxEngine(cfg)
+    jax_eng = JaxEngine(JaxExtendConfig(**dataclasses.asdict(cfg)))
     got = port.extend_seeds(seeds)
     assert got == jax_eng.extend_seeds(seeds)
     assert port.stats == jax_eng.stats

@@ -1,7 +1,7 @@
 """CUDA kernel and engine checks of the PyTorch port; they need a card.
 
-This file imports nothing of JAX, so it also runs where JAX is not
-installed (the repository's conftest imports it):
+This file imports nothing of JAX or the JAX package, so it also runs
+where JAX is not installed (the repository's conftest imports it):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
@@ -12,35 +12,36 @@ The SW, extension and SMEM kernels are integer: bit-exact against their
 plain versions, and their engines exact against the native host engines.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
-import os
-
-from acc_genomics_tpu import native
-from acc_genomics_tpu.config import PairHMMConfig, SmemConfig
-from acc_genomics_tpu.io import bwasw_records as br
-from acc_genomics_tpu.io.synth import (
+from acc_genomics_tpu_torch import native
+from acc_genomics_tpu_torch.config import PairHMMConfig, SmemConfig
+from acc_genomics_tpu_torch.io import bwasw_records as br
+from acc_genomics_tpu_torch.io.synth import (
     gen_pairhmm_input,
     gen_pairhmm_pairs,
     gen_reference_with_repeats,
     gen_smem_reads,
     gen_sw_batch,
 )
-from acc_genomics_tpu.ops.smem.index import FMIndex
+from acc_genomics_tpu_torch.ops.smem.index import FMIndex
 from acc_genomics_tpu_torch.build import ensure_native
+from acc_genomics_tpu_torch.engine.genomics_engine import GenomicsEngine
 from acc_genomics_tpu_torch.engine.extend_engine import (
     ExtendEngine,
     resolve_seeds,
     seed_tasks,
 )
-from acc_genomics_tpu.ops.pairhmm.context import PairHMMContext
-from acc_genomics_tpu.ops.pairhmm.pack import pack_pairhmm_batch, pack_pairhmm_quals
+from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext
+from acc_genomics_tpu_torch.ops.pairhmm.pack import pack_pairhmm_batch, pack_pairhmm_quals
 from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
 from acc_genomics_tpu_torch.engine.smem_engine import SmemEngine
 from acc_genomics_tpu_torch.engine.sw_engine import SWEngine
-from acc_genomics_tpu_torch.models import BwaEngines, BwaMemSeeding
+from acc_genomics_tpu_torch.models import BwaEngines, BwaMemDevicePipeline, BwaMemSeeding
 from acc_genomics_tpu_torch.ops.extend import kernel as EK
 from acc_genomics_tpu_torch.ops.pairhmm import kernel as K
 from acc_genomics_tpu_torch.ops.smem import kernel as MK
@@ -220,7 +221,7 @@ def _extend_batch(rng, n, qmax, tmax):
 @pytest.mark.gpu
 @pytest.mark.parametrize("w", [100, 8])
 def test_cuda_extend_kernel_matches_plain(cuda, w):
-    from acc_genomics_tpu_torch.shared import ExtendParams
+    from acc_genomics_tpu_torch.ops.extend.reference import ExtendParams
 
     rng = np.random.default_rng(4)
     p = ExtendParams(w=w)
@@ -277,7 +278,7 @@ def _smem_case(rng):
 
 @pytest.mark.gpu
 def test_cuda_smem_kernel_matches_plain(cuda):
-    from acc_genomics_tpu_torch.shared import SmemParams
+    from acc_genomics_tpu_torch.ops.smem.reference import SmemParams
 
     fm, reads = _smem_case(np.random.default_rng(6))
     seq = np.full((128, len(reads)), 4, np.uint8)
@@ -312,3 +313,40 @@ def test_cuda_smem_engine_and_bwa_mem_match_host(cuda):
     sub = reads[:16]
     assert (BwaMemSeeding(engines, max_occ=4).map_reads(sub)
             == BwaMemSeeding(cpu, max_occ=4).map_reads(sub))
+
+
+def _pipeline_case(cuda, flank):
+    """A GenomicsEngine on the card over a 50 kbp index, its pipeline, and
+    reads: 500 of 101, both text ends, one past seq_length, one all-N."""
+    fm, reads = _smem_case(np.random.default_rng(8))
+    reads += [fm.text[:70].copy(), fm.text[-70:].copy(), np.tile(reads[2], 3)]
+    eng = GenomicsEngine(device=cuda)
+    eng.set_index(fm)
+    return eng, BwaMemDevicePipeline(eng, max_occ=4, flank=flank), reads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flank", [100, 300])
+def test_cuda_fused_extension_matches_plain(cuda, flank):
+    import acc_genomics_tpu_torch.models.bwa_mem as bwa_module
+
+    _, pipe, reads = _pipeline_case(cuda, flank)
+    calls = []
+    real = bwa_module.extend_seeds_fused
+    bwa_module.extend_seeds_fused = lambda *a: (calls.append(a), real(*a))[1]
+    try:
+        before = EK.LAUNCHES["sw_extend_fused"]
+        hits = pipe.map_reads_arrays(reads)[0]
+    finally:
+        bwa_module.extend_seeds_fused = real
+    assert EK.LAUNCHES["sw_extend_fused"] == before + 1 and hits.shape[1] > 0
+    want = EK.extend_seeds_fused_plain(*calls[0])
+    assert torch.equal(torch.from_numpy(hits), want.cpu())
+
+
+@pytest.mark.gpu
+def test_cuda_pipeline_matches_bwa_mem_seeding(cuda):
+    eng, pipe, reads = _pipeline_case(cuda, 100)
+    got = pipe.map_reads(reads)
+    assert got == BwaMemSeeding(eng, max_occ=4, flank=100).map_reads(reads)
+    assert got[-1] and got[500] == []  # the host route; the all-N read

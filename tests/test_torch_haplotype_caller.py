@@ -13,7 +13,8 @@ import pathlib
 import numpy as np
 import pytest
 
-from acc_genomics_tpu.config import EngineConfig, PairHMMConfig
+from acc_genomics_tpu.config import EngineConfig
+from acc_genomics_tpu.config import PairHMMConfig as JaxPairHMMConfig
 from acc_genomics_tpu.engine.genomics_engine import GenomicsEngine
 from acc_genomics_tpu.io.synth import (
     gen_pairhmm_input,
@@ -23,6 +24,7 @@ from acc_genomics_tpu.io.synth import (
 from acc_genomics_tpu.models.haplotype_caller import HaplotypeCallerCore as JaxCore
 from acc_genomics_tpu.ops.pairhmm.reference import pairhmm_loglik_oracle
 from acc_genomics_tpu.ops.sw.reference import sw_align_oracle
+from acc_genomics_tpu_torch.config import PairHMMConfig
 from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
 from acc_genomics_tpu_torch.engine.sw_engine import SWEngine
 from acc_genomics_tpu_torch.io.synth import gen_region
@@ -35,7 +37,7 @@ GATHER = PairHMMConfig(quals_expand="gather")
 def _cores():
     port = HaplotypeCallerCore(HCEngines(SWEngine(device="cpu"),
                                          PairHMMEngine(GATHER, device="cpu")))
-    ref = JaxCore(GenomicsEngine(EngineConfig(pairhmm=GATHER)))
+    ref = JaxCore(GenomicsEngine(EngineConfig(pairhmm=JaxPairHMMConfig(quals_expand="gather"))))
     return port, ref
 
 

@@ -9,7 +9,7 @@ import sys
 import pytest
 import torch
 
-from acc_genomics_tpu.config import PairHMMConfig
+from acc_genomics_tpu_torch.config import PairHMMConfig
 from acc_genomics_tpu_torch import build
 from acc_genomics_tpu_torch.device import resolve_device, same_device
 from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
@@ -26,49 +26,47 @@ def _env(**extra):
     return env
 
 
-def test_port_imports_without_jax():
-    """This process has jax loaded (conftest), so import in a fresh one."""
-    mods = [
-        "acc_genomics_tpu_torch",
-        "acc_genomics_tpu_torch.shared",
-        "acc_genomics_tpu_torch.device",
-        "acc_genomics_tpu_torch.build",
-        "acc_genomics_tpu_torch.ops.pairhmm",
-        "acc_genomics_tpu_torch.ops.pairhmm.convert",
-        "acc_genomics_tpu_torch.engine",
-        "acc_genomics_tpu_torch.engine.pairhmm_engine",
-        "acc_genomics_tpu_torch.ops.sw",
-        "acc_genomics_tpu_torch.ops.sw.kernel",
-        "acc_genomics_tpu_torch.ops.sw.walker",
-        "acc_genomics_tpu_torch.ops.sw.batch",
-        "acc_genomics_tpu_torch.engine.sw_engine",
-        "acc_genomics_tpu_torch.models",
-        "acc_genomics_tpu_torch.models.haplotype_caller",
-        "acc_genomics_tpu_torch.io.synth",
-        "acc_genomics_tpu_torch.ops.extend",
-        "acc_genomics_tpu_torch.ops.extend.kernel",
-        "acc_genomics_tpu_torch.engine.packing",
-        "acc_genomics_tpu_torch.engine.extend_engine",
-        "acc_genomics_tpu_torch.ops.smem",
-        "acc_genomics_tpu_torch.ops.smem.table",
-        "acc_genomics_tpu_torch.ops.smem.kernel",
-        "acc_genomics_tpu_torch.engine.smem_engine",
-        "acc_genomics_tpu_torch.models.bwa_mem",
-    ]
-    code = "import sys\n" + "".join(f"import {m}\n" for m in mods) + (
-        "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))"
-    )
-    out = subprocess.run(
-        [sys.executable, "-c", code], cwd=ROOT, env=_env(),
-        capture_output=True, text=True, timeout=120,
-    )
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
-
-
 PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + [
     "chip_smoke.py"
 ]
+PORT_MODULES = sorted(
+    p[:-len(".py")].replace("/__init__", "").replace("/", ".")
+    for p in PORT_FILES if p.startswith("acc_genomics_tpu_torch/")
+)
+
+
+def test_port_imports_without_jax():
+    """This process has jax and the JAX package loaded (conftest, the
+    imports above), so import every port module in a fresh one, run the
+    paths that import lazily (FMIndex.build's suffix array, the native
+    quals pack, a native call), then read sys.modules."""
+    code = "import sys\n" + "".join(f"import {m}\n" for m in PORT_MODULES) + """
+import numpy as np
+from acc_genomics_tpu_torch import native
+from acc_genomics_tpu_torch.config import SmemConfig, SWConfig, ExtendConfig
+from acc_genomics_tpu_torch.io.synth import gen_pairhmm_pairs, gen_reference_with_repeats
+from acc_genomics_tpu_torch.ops.pairhmm.pack import pack_pairhmm_batch, pack_pairhmm_quals
+from acc_genomics_tpu_torch.ops.smem.index import FMIndex
+rng = np.random.default_rng(0)
+fm = FMIndex.build(gen_reference_with_repeats(rng, 3000))
+assert fm.sa.shape == (fm.seq_len + 1,)
+pairs = gen_pairhmm_pairs(rng, 4)
+pack_pairhmm_quals(pairs, rows=64, cols=128)
+pack_pairhmm_batch(pairs, rows=64, cols=128)
+SmemConfig().params(); SWConfig().params(); ExtendConfig().params()
+assert native.available()
+assert native.sw_align_host([np.zeros(8, np.uint8)], [np.zeros(8, np.uint8)], 0)
+print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')
+             or m == 'acc_genomics_tpu' or m.startswith('acc_genomics_tpu.')))
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert "acc_genomics_tpu_torch.native" in PORT_MODULES
+    assert "acc_genomics_tpu_torch.engine.genomics_engine" in PORT_MODULES
 
 
 @pytest.mark.parametrize("path", PORT_FILES)
@@ -77,12 +75,11 @@ def test_no_jax_import_statement(path):
     assert not re.search(r"^\s*(import jax|from jax)\b", text, re.M), path
 
 
-@pytest.mark.parametrize(
-    "path", [p for p in PORT_FILES if p != "acc_genomics_tpu_torch/shared.py"]
-)
-def test_reference_package_only_through_shared(path):
-    """Only shared.py imports the JAX package; the port's modules and
-    chip_smoke.py reach its framework-free modules through it."""
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_no_reference_package_import(path):
+    """No port module and not chip_smoke.py imports the JAX package, not
+    even a module of it that does not import jax: the port keeps its own
+    copies."""
     text = (ROOT / path).read_text()
     assert not re.search(
         r"^\s*(import|from)\s+acc_genomics_tpu(\.|\s)", text, re.M

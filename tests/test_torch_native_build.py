@@ -20,7 +20,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 CHILD = """
 import json, sys
 from acc_genomics_tpu_torch import build
-from acc_genomics_tpu_torch.shared import native
+from acc_genomics_tpu_torch import native
 res = build.build_native(sys.argv[1])
 ok = build.ensure_native(sys.argv[1])
 print(json.dumps(dict(built=res.built, path=res.path, available=ok,

@@ -8,16 +8,18 @@ are bit-identical to the JAX host pack, so log-likelihoods agree to
 rtol 1e-5 / atol 1e-5 and every stats counter is equal.
 """
 
+import dataclasses
 import os
 
 import numpy as np
 import pytest
 
-from acc_genomics_tpu.config import PairHMMConfig
+from acc_genomics_tpu.config import PairHMMConfig as JaxPairHMMConfig
 from acc_genomics_tpu.engine.pairhmm_engine import PairHMMEngine as JaxEngine
 from acc_genomics_tpu.io.pairhmm_text import read_pairhmm_input, read_pairhmm_output
 from acc_genomics_tpu.io.synth import gen_pairhmm_input, gen_pairhmm_pairs
 from acc_genomics_tpu.ops.pairhmm.reference import pairhmm_loglik_oracle
+from acc_genomics_tpu_torch.config import PairHMMConfig
 from acc_genomics_tpu_torch.engine import plan_buckets
 from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
 
@@ -27,9 +29,13 @@ COUNTERS = ("pairs", "recomputed", "cells", "device_calls", "host_fallback",
 GATHER = dict(quals_expand="gather")
 
 
+def _jax(cfg):
+    return JaxPairHMMConfig(**dataclasses.asdict(cfg))
+
+
 def _engines(cfg=None, gate=0):
     cfg = cfg or PairHMMConfig(**GATHER)
-    jax_eng = JaxEngine(cfg, use_pallas=False)
+    jax_eng = JaxEngine(_jax(cfg), use_pallas=False)
     port = PairHMMEngine(cfg, device="cpu")
     if gate is not None:
         jax_eng.min_device_cells = port.min_device_cells = gate
@@ -151,7 +157,7 @@ def test_flat_with_oversize_matches_jax_flat(rng):
         big[k] = np.resize(np.asarray(tcs[0][k], np.uint8), 80)
     tcs.append(big)
     cfg = PairHMMConfig(read_buckets=(32, 64), hap_buckets=(64,))
-    jax_eng = JaxEngine(cfg, use_pallas=True)
+    jax_eng = JaxEngine(_jax(cfg), use_pallas=True)
     jax_eng._interpret = True
     want = jax_eng.compute_pairs_flat(*_flatten(tcs))
     port = PairHMMEngine(cfg, device="cpu")

@@ -12,6 +12,7 @@ list.  The CUDA kernel is held against the plain version in
 test_torch_gpu.py, which needs a card.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -19,16 +20,17 @@ import pytest
 import torch
 
 from acc_genomics_tpu.io.synth import gen_reference_with_repeats, gen_smem_reads
-from acc_genomics_tpu.ops.smem.index import FMIndex
+from acc_genomics_tpu.ops.smem.index import FMIndex as JaxFMIndex
 from acc_genomics_tpu.ops.smem.machine import device_index_fused, smem_batch_machine
 from acc_genomics_tpu.ops.smem.reference import (
     DEFAULT_SMEM_PARAMS,
     SmemParams,
     mem_collect_intv_oracle,
 )
+from acc_genomics_tpu.io.bwa_index import load_bwa_index
 from acc_genomics_tpu_torch.ops.smem import kernel as K
+from acc_genomics_tpu_torch.ops.smem.index import FMIndex
 from acc_genomics_tpu_torch.ops.smem.table import DeviceIndex, probe_table
-from acc_genomics_tpu_torch.shared import load_bwa_index
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 FIELDS = ("x0", "x1", "s", "start", "end")
@@ -97,11 +99,11 @@ CASES = {"exact_parity": _exact_parity, "mixed_lengths": _mixed_lengths,
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_matches_oracle_and_jax_machine(case, rng):
     genome, reads, seq_len, params = CASES[case](rng)
-    fm = FMIndex.build(genome)
-    got, flags, probes = _plain(fm, reads, seq_len, params)
-    jax_got, jax_ovf, _ = smem_batch_machine(fm, reads, seq_len=seq_len, params=params)
+    got, flags, probes = _plain(FMIndex.build(genome), reads, seq_len, params)
+    jax_fm = JaxFMIndex.build(genome)
+    jax_got, jax_ovf, _ = smem_batch_machine(jax_fm, reads, seq_len=seq_len, params=params)
     for k, r in enumerate(reads):
-        want = _tuples(mem_collect_intv_oracle(fm, r, params))
+        want = _tuples(mem_collect_intv_oracle(jax_fm, r, params))
         if flags[k]:
             assert got[k] == want[: len(got[k])], k
             continue
@@ -118,8 +120,9 @@ def test_plain_matches_oracle_and_jax_machine(case, rng):
 
 
 def test_probe_table_matches_device_index_fused(rng):
-    fm = FMIndex.build(gen_reference_with_repeats(rng, 1000))
-    want = device_index_fused(fm)
+    genome = gen_reference_with_repeats(rng, 1000)
+    fm = FMIndex.build(genome)
+    want = device_index_fused(JaxFMIndex.build(genome))
     idx = DeviceIndex.build(fm, "cpu")
     np.testing.assert_array_equal(probe_table(fm), np.asarray(want["tbl"]))
     np.testing.assert_array_equal(idx.tbl.numpy(), np.asarray(want["tbl"]))
@@ -130,15 +133,17 @@ def test_probe_table_matches_device_index_fused(rng):
 
 def test_plain_on_bwa_index_fixture():
     """The frozen ``bwa index`` files, read through the JAX package's
-    reader: the port's table from them gives the oracle's intervals."""
+    reader into the port's FMIndex: the port's table from them gives the
+    oracle's intervals."""
     genome = np.load(os.path.join(FIX, "bwaidx_genome.npy"))
-    fm, _ = load_bwa_index(os.path.join(FIX, "bwaidx"))
+    loaded, _ = load_bwa_index(os.path.join(FIX, "bwaidx"))
+    fm = FMIndex(**{f.name: getattr(loaded, f.name) for f in dataclasses.fields(loaded)})
     rng = np.random.default_rng(3)
     reads = [genome[p: p + 60].copy() for p in rng.integers(0, len(genome) - 60, 4)]
     reads += gen_smem_reads(rng, genome, 4, read_len=60)
     got, flags, _ = _plain(fm, reads, 64)
     assert not flags.any()
-    fresh = FMIndex.build(genome)
+    fresh = JaxFMIndex.build(genome)
     for g, r in zip(got, reads):
         assert g == _tuples(mem_collect_intv_oracle(fresh, r))
 

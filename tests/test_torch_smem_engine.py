@@ -8,18 +8,22 @@ lists equal the oracle's in order, and the JAX engine's (whose multi-read
 route the small ``batch_size`` cases take) as sets.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from acc_genomics_tpu.config import SmemConfig
+from acc_genomics_tpu.config import SmemConfig as JaxSmemConfig
 from acc_genomics_tpu.engine.smem_engine import SmemEngine as JaxEngine
 from acc_genomics_tpu.io.synth import gen_reference_with_repeats, gen_smem_reads
-from acc_genomics_tpu.ops.smem.index import FMIndex
+from acc_genomics_tpu.ops.smem.index import FMIndex as JaxFMIndex
 from acc_genomics_tpu.ops.smem.reference import mem_collect_intv_oracle
+from acc_genomics_tpu_torch.config import SmemConfig
 from acc_genomics_tpu_torch.engine import smem_engine as engine_module
 from acc_genomics_tpu_torch.engine.smem_engine import SmemEngine
 from acc_genomics_tpu_torch.ops.smem import kernel as K
+from acc_genomics_tpu_torch.ops.smem.index import FMIndex
 
 
 def _canon(z):
@@ -64,12 +68,12 @@ CASES = {"multiread": _multiread, "buckets_and_long": _buckets_and_long, "busts"
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_collect_matches_jax_engine_and_oracle(case, rng):
     genome, reads, cfg = CASES[case](rng)
-    fm = FMIndex.build(genome)
-    port = SmemEngine(fm, cfg, device="cpu")
+    port = SmemEngine(FMIndex.build(genome), cfg, device="cpu")
     got = port.collect(reads)
-    want_jax = JaxEngine(fm, cfg).collect(reads)
+    jax_fm, jax_cfg = JaxFMIndex.build(genome), JaxSmemConfig(**dataclasses.asdict(cfg))
+    want_jax = JaxEngine(jax_fm, jax_cfg).collect(reads)
     for k, r in enumerate(reads):
-        assert got[k] == mem_collect_intv_oracle(fm, r, port.params), k
+        assert got[k] == mem_collect_intv_oracle(jax_fm, r, jax_cfg.params()), k
         assert _canon(got[k]) == _canon(want_jax[k]), k
     assert port.stats["reads"] == len(reads)
     if case == "busts":

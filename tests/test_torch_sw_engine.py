@@ -7,17 +7,24 @@ runs its XLA fill and native walk (``use_pallas=False``).  CIGARs and
 offsets are exact and the ``stats`` counters equal.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from acc_genomics_tpu.config import SWConfig
+from acc_genomics_tpu.config import SWConfig as JaxSWConfig
 from acc_genomics_tpu.engine.sw_engine import SWEngine as JaxEngine
 from acc_genomics_tpu.io.synth import gen_sw_batch
 from acc_genomics_tpu.ops.sw.reference import sw_align_oracle
+from acc_genomics_tpu_torch.config import SWConfig
 from acc_genomics_tpu_torch.engine import sw_engine as engine_module
 from acc_genomics_tpu_torch.engine.sw_engine import SWEngine, chunk_pairs
 from acc_genomics_tpu_torch.ops.sw import kernel as K
+
+
+def _jax(cfg):
+    return JaxSWConfig(**dataclasses.asdict(cfg))
 
 
 def _fallback_case(rng):
@@ -58,7 +65,7 @@ CASES = {"host_fallback": _fallback_case, "mixed_buckets_chunked": _mixed_bucket
 def test_align_matches_jax_engine(case, strategy, rng):
     refs, alts, cfg = CASES[case](rng)
     port = SWEngine(cfg, device="cpu")
-    jax_eng = JaxEngine(cfg, use_pallas=False)
+    jax_eng = JaxEngine(_jax(cfg), use_pallas=False)
     got = port.align(refs, alts, strategy)
     assert got == jax_eng.align(refs, alts, strategy)
     assert port.stats == jax_eng.stats
@@ -94,7 +101,7 @@ def test_chunks_launch_before_one_fetch(monkeypatch, rng):
 def test_align_one_ref_and_empty(rng):
     ref, alts = gen_sw_batch(rng, 5, ref_len=60)
     port = SWEngine(SWConfig(seq_buckets=(64,)), device="cpu")
-    jax_eng = JaxEngine(SWConfig(seq_buckets=(64,)), use_pallas=False)
+    jax_eng = JaxEngine(JaxSWConfig(seq_buckets=(64,)), use_pallas=False)
     assert port.align_one_ref(ref, alts, 2) == jax_eng.align_one_ref(ref, alts, 2)
     assert port.align([], [], 0) == []
     assert port.stats == jax_eng.stats

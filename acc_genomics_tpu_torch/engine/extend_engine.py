@@ -15,7 +15,9 @@ batches):
   groups' ``h0`` (the left scores) is gathered on the card from the
   concatenated left results, so no result goes back to the host in
   between; all results come back in one D2H copy;
-* ``extend_seeds`` resolves each seed's record against ``pen_clip``.
+* ``extend_seeds`` resolves each seed's record against ``pen_clip``;
+* with a ``mesh``, each launch's tasks run data-parallel over its "data"
+  axis (``parallel/sharded_kernels.sw_extend_dp``).
 
 On ``device="cpu"`` the same route runs the kernel's plain version.
 """
@@ -35,6 +37,7 @@ from acc_genomics_tpu_torch.engine.packing import pack_tm
 from acc_genomics_tpu_torch.ops.extend.kernel import KEYS, sw_extend_rows
 from acc_genomics_tpu_torch import native
 from acc_genomics_tpu_torch.config import ExtendConfig
+from acc_genomics_tpu_torch.parallel.sharded_kernels import sw_extend_dp
 from acc_genomics_tpu_torch.utils.timer import Timer
 
 
@@ -88,9 +91,10 @@ def seed_tasks(seeds: Sequence[dict]):
 class ExtendEngine:
     """Extends seeds to alignment records, exact."""
 
-    def __init__(self, config: ExtendConfig = ExtendConfig(), device="cuda"):
+    def __init__(self, config: ExtendConfig = ExtendConfig(), device="cuda", mesh=None):
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh
         if not ensure_native():
             raise RuntimeError(
                 "the native host library (acc_genomics_tpu_torch/native) is "
@@ -118,6 +122,12 @@ class ExtendEngine:
         bq = np.where(over, -1, qb[np.minimum(np.searchsorted(qb, ql), len(qb) - 1)])
         bt = np.where(over, -1, tb[np.minimum(np.searchsorted(tb, tl), len(tb) - 1)])
         return bq, bt
+
+    def _extend(self, q, t, qlen, tlen, h0):
+        """One launch: both caps at the query length, as the engine runs it."""
+        if self.mesh is not None:
+            return sw_extend_dp(self.mesh, q, t, qlen, tlen, h0, qlen, qlen, self.params)
+        return sw_extend_rows(q, t, qlen, tlen, h0, qlen, qlen, self.params)
 
     def _host(self, lq, lt, h0l, rq, rt, idx, out_l, out_r):
         """Both directions of tasks ``idx`` on the native host engine."""
@@ -208,15 +218,12 @@ class ExtendEngine:
                     t = dev[o8 + bq * m: o8 + (bq + bt) * m].view(bt, m)
                     o8 += (bq + bt) * m
                     if d == 0:
-                        left.append(sw_extend_rows(q, t, qlen, tlen, side, qlen,
-                                                   qlen, self.params))
+                        left.append(self._extend(q, t, qlen, tlen, side))
                     else:
                         pending.append((q, t, qlen, tlen, side))
                 scores_l = torch.cat([r[0] for r in left])
                 right = [
-                    sw_extend_rows(q, t, qlen, tlen,
-                                   scores_l.index_select(0, side.long()),
-                                   qlen, qlen, self.params)
+                    self._extend(q, t, qlen, tlen, scores_l.index_select(0, side.long()))
                     for q, t, qlen, tlen, side in pending
                 ]
                 results = torch.cat(left + right, 1)

@@ -2,7 +2,8 @@
 
 The port of ``acc_genomics_tpu/engine/genomics_engine.py``: the top-level
 API a user lands on, with device-resident state and one stats
-scoreboard.  It takes no mesh: the port runs on one card.
+scoreboard.  An optional ``mesh`` (``parallel/mesh.py``) goes to all four
+engines.
 ``HaplotypeCallerCore`` (``.sw``, ``.pairhmm``), ``BwaMemSeeding`` and
 ``BwaMemDevicePipeline`` (``.smem``, ``.extend``) run on it as they are.
 """
@@ -23,12 +24,13 @@ from acc_genomics_tpu_torch.ops.smem.index import FMIndex
 
 
 class GenomicsEngine:
-    def __init__(self, config: EngineConfig = EngineConfig(), device="cuda"):
+    def __init__(self, config: EngineConfig = EngineConfig(), device="cuda", mesh=None):
         self.config = config
         self.device = resolve_device(device)
-        self.pairhmm = PairHMMEngine(config.pairhmm, device=self.device)
-        self.sw = SWEngine(config.sw, device=self.device)
-        self.extend = ExtendEngine(config.extend, device=self.device)
+        self.mesh = mesh
+        self.pairhmm = PairHMMEngine(config.pairhmm, device=self.device, mesh=mesh)
+        self.sw = SWEngine(config.sw, device=self.device, mesh=mesh)
+        self.extend = ExtendEngine(config.extend, device=self.device, mesh=mesh)
         self._smem = None
 
     # -- index management ---------------------------------------------------
@@ -41,7 +43,7 @@ class GenomicsEngine:
     def set_index(self, fm: FMIndex):
         """Put ``fm``'s probe table on the card (replacing any earlier
         index)."""
-        self._smem = SmemEngine(fm, self.config.smem, device=self.device)
+        self._smem = SmemEngine(fm, self.config.smem, device=self.device, mesh=self.mesh)
 
     @property
     def smem(self) -> SmemEngine:

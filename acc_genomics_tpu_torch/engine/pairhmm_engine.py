@@ -7,6 +7,12 @@ of the reference's FalconPairHMM::computePairhmm dispatch):
 * a static cell gate: small batches run on the native host engine;
 * pairs beyond the largest bucket run on the native host engine, on a
   worker thread concurrent with the device buckets;
+* with a ``mesh`` (``parallel/mesh.py``), the buckets are packed as fp32
+  coefficient planes and run data-parallel (``pairhmm_forward_dp``), and
+  a pair whose haplotype is past ``max_hap_len`` but within
+  ``max_hap_len`` x seq runs on the DP x SP band pipeline
+  (``pairhmm_forward_dpsp``) instead of the host; the flat entry points
+  take the dict path;
 * the device route ships uint8 byte planes (quals, codes, hap) and the
   kernel expands the coefficients itself (``config.quals_expand``);
 * fp32 results below ``config.min_accepted`` are recomputed in fp64 on
@@ -33,14 +39,21 @@ import torch
 from acc_genomics_tpu_torch.build import ensure_native
 from acc_genomics_tpu_torch.device import resolve_device
 from acc_genomics_tpu_torch.engine.bucketing import plan_buckets
-from acc_genomics_tpu_torch.ops.pairhmm.convert import context_tables
+from acc_genomics_tpu_torch.ops.pairhmm.convert import batch_to_torch, context_tables
 from acc_genomics_tpu_torch.ops.pairhmm.kernel import pairhmm_forward_from_quals
 from acc_genomics_tpu_torch import native
 from acc_genomics_tpu_torch.config import PairHMMConfig
 from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext
-from acc_genomics_tpu_torch.ops.pairhmm.pack import pack_pairhmm_quals
+from acc_genomics_tpu_torch.ops.pairhmm.pack import pack_pairhmm_batch, pack_pairhmm_quals
+from acc_genomics_tpu_torch.parallel.sharded import pairhmm_forward_dp, pairhmm_forward_dpsp
 from acc_genomics_tpu_torch.utils.convert import HAP_PAD
 from acc_genomics_tpu_torch.utils.timer import Timer
+
+# C of the band pipeline on the SP route: a full warp a chunk.  C changes
+# no bit of the result; 32 makes 4x fewer supersteps than JAX's 8, and the
+# pipeline on chip_smoke.py's phase-15 pack took 0.57x the time on an
+# H100.  The largest read bucket must divide by it.
+SP_CHUNK_ROWS = 32
 
 
 @dataclasses.dataclass
@@ -93,7 +106,7 @@ class PairHMMEngine:
     """Computes log10 P(read | hap) for batches of (read, hap) pairs."""
 
     def __init__(
-        self, config: PairHMMConfig = PairHMMConfig(), device="cuda",
+        self, config: PairHMMConfig = PairHMMConfig(), device="cuda", mesh=None,
     ):
         if config.upload != "quals":
             raise ValueError(
@@ -119,6 +132,19 @@ class PairHMMEngine:
         self._tables = (ph2pr, m2m)
         self._cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
+        # optional device mesh: buckets shard over its "data" axis, long
+        # haplotypes over its "seq" axis as well
+        self.mesh = mesh
+        self._data_size = mesh.shape["data"] if mesh is not None else 1
+        self._seq_size = mesh.shape["seq"] if mesh is not None else 1
+        # mesh route, host seconds: pack_s the bucket packs, sp_pack_s the
+        # SP pack, launch_s the H2D copies and launches, fetch_s the D2H
+        # copy of the results (it waits for the card)
+        self.anatomy = dict(pack_s=0.0, sp_pack_s=0.0, launch_s=0.0, fetch_s=0.0)
+
+    def reset_anatomy(self):
+        for k in self.anatomy:
+            self.anatomy[k] = 0.0
 
     def _on_stream(self):
         if self._stream is None:
@@ -202,13 +228,17 @@ class PairHMMEngine:
             self.stats["cells"] += total_cells
             return self._epilogue(testcases, host)
 
-        fits, over = [], []
+        # on a mesh with a seq axis, a pair whose haplotype (not read) is
+        # past the bucket cap runs on the DP x SP shards instead of the host
+        sp_cap = self.config.max_hap_len * self._seq_size
+        fits, sp_idx, over = [], [], []
         for k in range(n):
-            if (
-                read_lens[k] <= self.config.max_read_len
-                and hap_lens[k] <= self.config.max_hap_len
-            ):
+            if read_lens[k] > self.config.max_read_len:
+                over.append(k)
+            elif hap_lens[k] <= self.config.max_hap_len:
                 fits.append(k)
+            elif self._seq_size > 1 and hap_lens[k] <= sp_cap:
+                sp_idx.append(k)
             else:
                 over.append(k)
         raw = np.zeros(n, np.float32)
@@ -237,31 +267,88 @@ class PairHMMEngine:
         )
         fits_arr = np.asarray(fits, dtype=np.int64)
         with Timer("pairhmm.device"):
-            buckets = []
-            for (rows, cols), idxs in plan.groups.items():
-                max_pairs = self.config.max_batch_pairs
-                for lo in range(0, len(idxs), max_pairs):
-                    chunk = fits_arr[idxs[lo : lo + max_pairs]]
-                    pack = pack_pairhmm_quals(
-                        [testcases[k] for k in chunk], rows=rows, cols=cols,
-                        pad_lanes=False, sort_by_haplen=True,
-                    )
-                    self.stats["cells"] += pack.cells
-                    sel = chunk if pack.perm is None else chunk[pack.perm]
-                    buckets.append(
-                        _Bucket(
-                            sel,
-                            [pack.q, pack.i, pack.d, pack.c, pack.rs, pack.hap_ext],
-                            pack.rslen, pack.haplen, rows,
-                        )
-                    )
-            if buckets:
-                self._launch(buckets).scatter(raw)
+            if self.mesh is not None:
+                self._run_mesh(testcases, plan, fits_arr, sp_idx, raw)
+            else:
+                self._run_quals(testcases, plan, fits_arr, raw)
         if host_thread is not None:
             host_thread.join()
             if host_err:
                 raise host_err[0]
         return self._epilogue(testcases, raw)
+
+    def _run_quals(self, testcases, plan, fits_arr, raw: np.ndarray):
+        """The byte-plane route: one quals pack a bucket, all launched
+        from one staged upload, results scattered into ``raw``."""
+        buckets = []
+        for (rows, cols), idxs in plan.groups.items():
+            max_pairs = self.config.max_batch_pairs
+            for lo in range(0, len(idxs), max_pairs):
+                chunk = fits_arr[idxs[lo : lo + max_pairs]]
+                pack = pack_pairhmm_quals(
+                    [testcases[k] for k in chunk], rows=rows, cols=cols,
+                    pad_lanes=False, sort_by_haplen=True,
+                )
+                self.stats["cells"] += pack.cells
+                sel = chunk if pack.perm is None else chunk[pack.perm]
+                buckets.append(
+                    _Bucket(
+                        sel,
+                        [pack.q, pack.i, pack.d, pack.c, pack.rs, pack.hap_ext],
+                        pack.rslen, pack.haplen, rows,
+                    )
+                )
+        if buckets:
+            self._launch(buckets).scatter(raw)
+
+    def _run_mesh(self, testcases, plan, fits_arr, sp_idx, raw: np.ndarray):
+        """The mesh route: each bucket packed as fp32 coefficient planes and
+        run data-parallel, the long haplotypes (``sp_idx``) packed at the
+        largest read bucket and ``seq`` x 128-aligned columns and run on the
+        DP x SP pipeline; one D2H copy brings every result into ``raw``."""
+        jobs = []
+        with self._on_stream():
+            if sp_idx:
+                self.stats["sp_pairs"] = self.stats.get("sp_pairs", 0) + len(sp_idx)
+                t0 = time.perf_counter()
+                step = self._seq_size * 128
+                max_hl = max(len(testcases[k]["hap"]) for k in sp_idx)
+                pack = pack_pairhmm_batch(
+                    [testcases[k] for k in sp_idx], rows=self.config.read_buckets[-1],
+                    cols=-(-max_hl // step) * step, dtype=np.float32,
+                    lane_multiple=self._data_size,
+                )
+                t1 = time.perf_counter()
+                self.anatomy["sp_pack_s"] += t1 - t0
+                res = pairhmm_forward_dpsp(
+                    self.mesh, *batch_to_torch(pack, self.device), C=SP_CHUNK_ROWS
+                )
+                self.anatomy["launch_s"] += time.perf_counter() - t1
+                jobs.append((np.asarray(sp_idx, np.int64), pack, res))
+            for (rows, cols), idxs in plan.groups.items():
+                max_pairs = self.config.max_batch_pairs
+                for lo in range(0, len(idxs), max_pairs):
+                    chunk = fits_arr[idxs[lo : lo + max_pairs]]
+                    t0 = time.perf_counter()
+                    pack = pack_pairhmm_batch(
+                        [testcases[k] for k in chunk], rows=rows, cols=cols,
+                        dtype=np.float32, lane_multiple=self._data_size,
+                    )
+                    self.stats["cells"] += pack.cells
+                    self.stats["device_calls"] += 1
+                    t1 = time.perf_counter()
+                    self.anatomy["pack_s"] += t1 - t0
+                    res = pairhmm_forward_dp(self.mesh, *batch_to_torch(pack, self.device))
+                    self.anatomy["launch_s"] += time.perf_counter() - t1
+                    jobs.append((chunk, pack, res))
+            if jobs:
+                t0 = time.perf_counter()
+                allres = torch.cat([res for _, _, res in jobs]).cpu().numpy()
+                self.anatomy["fetch_s"] += time.perf_counter() - t0
+                col = 0
+                for chunk, pack, res in jobs:
+                    raw[chunk] = pack.unsort(allres[col : col + len(res)])
+                    col += len(res)
 
     def _epilogue(self, testcases, raw: np.ndarray) -> np.ndarray:
         """log10 conversion + fp64 recompute of fp32 underflows (the
@@ -333,6 +420,15 @@ class PairHMMEngine:
                 np.cumsum(hlens[:-1].astype(np.int64), out=hoffs[1:])
         else:
             hoffs = np.ascontiguousarray(hoffs, np.int64)
+        if self.mesh is not None:  # the mesh route runs on the dict path
+            tcs = [
+                dict(rs=rs[offs[k]:offs[k] + lens[k]], q=q[offs[k]:offs[k] + lens[k]],
+                     i=i[offs[k]:offs[k] + lens[k]], d=d[offs[k]:offs[k] + lens[k]],
+                     c=c[offs[k]:offs[k] + lens[k]],
+                     hap=hap[hoffs[k]:hoffs[k] + hlens[k]])
+                for k in range(n)
+            ]
+            return self.compute_pairs(tcs)
         self.stats["pairs"] += n
         rs, q, i, d, c, hap = (
             np.ascontiguousarray(a, np.uint8) for a in (rs, q, i, d, c, hap)

@@ -15,7 +15,10 @@ device route:
 * reads past ``seq_length`` and reads the kernel flags (a chain or the
   output past its cap) rerun on the native host engine, on a worker
   thread concurrent with the device work (the flagged ones as soon as the
-  counts arrive).
+  counts arrive);
+* with a ``mesh``, the probe table goes to each of its distinct devices
+  once and each batch's reads run data-parallel over its "data" axis
+  (``parallel/sharded_kernels.smem_collect_dp``), on the same kernel.
 
 The TPU engine's multi-read lanes, 2-bit read pool and ragged-gather
 bucketing exist because of lockstep lanes and a slow link; the port has
@@ -39,6 +42,7 @@ from acc_genomics_tpu_torch.ops.smem.kernel import smem_collect
 from acc_genomics_tpu_torch.ops.smem.table import DeviceIndex
 from acc_genomics_tpu_torch import native
 from acc_genomics_tpu_torch.config import SmemConfig
+from acc_genomics_tpu_torch.parallel.sharded_kernels import replicate_index, smem_collect_dp
 from acc_genomics_tpu_torch.ops.smem.index import FMIndex
 from acc_genomics_tpu_torch.ops.smem.reference import mem_collect_intv_oracle
 from acc_genomics_tpu_torch.utils.timer import Timer
@@ -58,17 +62,22 @@ def split_dicts(flat: np.ndarray, counts: np.ndarray) -> List[List[dict]]:
 class SmemEngine:
     """3-pass SMEM intervals per read, exact and in the oracle's order."""
 
-    def __init__(self, fm: FMIndex, config: SmemConfig = SmemConfig(), device="cuda"):
+    def __init__(self, fm: FMIndex, config: SmemConfig = SmemConfig(), device="cuda",
+                 mesh=None):
         self.fm = fm
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh
         if not ensure_native():
             raise RuntimeError(
                 "the native host library (acc_genomics_tpu_torch/native) is "
                 "unavailable: the host reruns need it"
             )
         with Timer("smem.index_upload"):
-            self.index = DeviceIndex.build(fm, self.device)
+            if mesh is not None:
+                self.indexes = replicate_index(mesh, fm)
+            else:
+                self.index = DeviceIndex.build(fm, self.device)
         self.params = config.params()
         # probe_iters: FM-index extensions taken on the card (two occ
         # probes each), summed over reads
@@ -103,8 +112,11 @@ class SmemEngine:
         self.anatomy["pack_s"] += t1 - t0
         dev = staged.to(self.device, non_blocking=True)
         self.anatomy["h2d_bytes"] += staged.numel()
-        out = smem_collect(self.index, dev[4 * n:].view(L, n),
-                           dev[: 4 * n].view(torch.int32), self.params)
+        seq, lens = dev[4 * n:].view(L, n), dev[: 4 * n].view(torch.int32)
+        if self.mesh is not None:
+            out = smem_collect_dp(self.mesh, self.indexes, seq, lens, self.params)
+        else:
+            out = smem_collect(self.index, seq, lens, self.params)
         self.anatomy["launch_s"] += time.perf_counter() - t1
         return out
 

@@ -13,7 +13,9 @@ The port of ``acc_genomics_tpu/engine/sw_engine.py`` on its device route
 * every chunk is launched before anything is fetched, and the packed
   element buffers of all chunks come back in one D2H copy; the backtrack
   matrices never leave the card;
-* pairs whose CIGAR overflows an element buffer rerun on the oracle.
+* pairs whose CIGAR overflows an element buffer rerun on the oracle;
+* with a ``mesh``, each chunk's pairs run data-parallel over its "data"
+  axis (``parallel/sharded_kernels.sw_device_dp``).
 
 On ``device="cpu"`` the same route runs the kernels' plain versions.
 """
@@ -52,9 +54,10 @@ def chunk_pairs(rows: int, cols: int, max_batch: int) -> int:
 class SWEngine:
     """Aligns (ref, alt) pairs: [(cigar, offset)] per pair, exact."""
 
-    def __init__(self, config: SWConfig = SWConfig(), device="cuda"):
+    def __init__(self, config: SWConfig = SWConfig(), device="cuda", mesh=None):
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh
         if not ensure_native():
             raise RuntimeError(
                 "the native host library (acc_genomics_tpu_torch/native) is "
@@ -126,7 +129,8 @@ class SWEngine:
                 grefs = [refs[k] for k in idxs]
                 galts = [alts[k] for k in idxs]
                 launched = sw_align_batch_launch(
-                    grefs, galts, strategy, rows, cols, self.device, self.params
+                    grefs, galts, strategy, rows, cols, self.device, self.params,
+                    mesh=self.mesh,
                 )
                 pend.append((idxs, grefs, galts, launched))
                 self.stats["cells"] += sum(len(r) * len(a) for r, a in zip(grefs, galts))

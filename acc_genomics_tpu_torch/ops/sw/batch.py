@@ -17,6 +17,7 @@ import torch
 
 from acc_genomics_tpu_torch.ops.sw.kernel import sw_fill, sw_walk
 from acc_genomics_tpu_torch.ops.sw.walker import decode_elements
+from acc_genomics_tpu_torch.parallel.sharded_kernels import sw_device_dp
 from acc_genomics_tpu_torch.ops.sw.reference import (
     DEFAULT_SW_PARAMS,
     SWParams,
@@ -52,11 +53,12 @@ class Launched:
 
 def sw_align_batch_launch(
     refs, alts, strategy: int, rows: int, cols: int, device: torch.device,
-    params: SWParams = DEFAULT_SW_PARAMS,
+    params: SWParams = DEFAULT_SW_PARAMS, mesh=None,
 ) -> Launched:
     """Pack one bucket into a staging buffer (pinned on CUDA), upload it
     with one copy and launch the fill and the walk on the current stream,
-    without fetching."""
+    without fetching.  With a ``mesh`` the pairs run data-parallel over it
+    (``sw_device_dp``) and ``packed`` lands on its first device."""
     n = len(refs)
     cuda = device.type == "cuda"
     meta_at = -(-n * (rows + cols) // 16) * 16  # int32 lengths, aligned
@@ -69,6 +71,9 @@ def sw_align_batch_launch(
     ref = dev[: n * rows].view(n, rows)
     alt = dev[n * rows : n * (rows + cols)].view(n, cols)
     lens = dev[meta_at:].view(torch.int32).view(2, n)
+    if mesh is not None:
+        return Launched(sw_device_dp(mesh, ref, alt, lens[0], lens[1], strategy, params),
+                        staged)
     btrack, lastrow, altcol = sw_fill(ref, alt, lens[0], lens[1], strategy, params)
     packed = sw_walk(btrack, lastrow, altcol, lens[0], lens[1], strategy)
     return Launched(packed, staged)

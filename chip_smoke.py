@@ -25,7 +25,12 @@ drives BwaMemSeeding on GenomicsEngine over 2048 reads against the same
 composition over the native host engines and the oracle chain; checks the
 fused seed-extension kernel bit for bit against its plain version on the
 seeds of BwaMemDevicePipeline, drives the pipeline on the same reads
-against BwaMemSeeding, and checks its edges.
+against BwaMemSeeding, and checks its edges.  Mesh: on a (1, 4) mesh of
+the one card, checks the band kernel against its plain version on two
+supersteps of the DP x SP pipeline, drives PairHMMEngine(mesh=...) on
+2,048 pairs whose haplotypes are all past 1024 columns against the
+native host engine and the oracle, holds SP against the DP kernel on
+pairs that fit, and checks the edges and GenomicsEngine(mesh=...).
 Any failed check raises, so the exit code is non-zero.  The last line of
 standard output is one JSON object naming the device; the line before it
 lists each kernel of the main paths with its launches, error, times and
@@ -61,6 +66,8 @@ EXTEND_TPU = "acc_genomics_tpu/ops/extend/kernel.py:49"
 SMEM_SOURCE = "acc_genomics_tpu_torch/ops/smem/csrc/smem_collect.cu"
 SMEM_TPU = "acc_genomics_tpu/ops/smem/machine.py:267"
 FUSED_TPU = "acc_genomics_tpu/models/bwa_mem.py:109"
+BAND_SOURCE = "acc_genomics_tpu_torch/ops/pairhmm/csrc/pairhmm_band.cu"
+BAND_TPU = "acc_genomics_tpu/ops/pairhmm/band_kernel.py:61"
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM3 bytes/s, fp32 outside
 # the tensor cores, and int32 at half the fp32 rate (64 INT32 lanes an SM
 # against 128 FP32)
@@ -79,6 +86,8 @@ BWA_READS = 2048  # bench_bwamem's reads (max_occ 4, flank 100)
 SW_BENCH_PAIRS = 8192  # bench.py bench_sw: one ref of 286 vs 8192 alts
 HC_SIZES = (64, 1024)  # regions: bench_hc's shape, and one full SW max_batch
 HC_REPEATS = 5
+# phase 15: 256 reads of up to 250 against 8 haplotypes of 2048-4096
+MESH_READS, MESH_HAPS, MESH_READ_LEN, MESH_HAP_LEN = 256, 8, 250, 4096
 
 # kernel vs plain on the card: every lane in raw fp32 within RAW_RTOL
 # (denormal lanes within RAW_ATOL, 1/1024 of the smallest normal fp32),
@@ -182,16 +191,20 @@ def kernel_vs_plain(name: str, got: np.ndarray, want: np.ndarray, log10_ic) -> f
 
 
 @contextlib.contextmanager
-def capture_calls(module, name: str, calls: list):
+def capture_calls(module, name: str, calls: list, keep=None):
     """Record a copy of the arguments of every call of ``module.<name>``
-    while the block runs (the copies are taken on the caller's stream)."""
+    while the block runs, or of the calls whose index is in ``keep`` (the
+    copies are taken on the caller's stream)."""
     import torch
 
     real = getattr(module, name)
+    seen = [0]
 
     def recorder(*args, **kw):
-        calls.append(([a.clone() if isinstance(a, torch.Tensor) else a
-                       for a in args], dict(kw)))
+        if keep is None or seen[0] in keep:
+            calls.append(([a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args], dict(kw)))
+        seen[0] += 1
         return real(*args, **kw)
 
     setattr(module, name, recorder)
@@ -228,6 +241,21 @@ def oracle(tcs) -> np.ndarray:
 
     return np.array([pairhmm_loglik_oracle(t["rs"], t["q"], t["i"], t["d"],
                                            t["c"], t["hap"]) for t in tcs])
+
+
+def host_loglik(tcs):
+    """(log10-likelihoods, count recomputed) of the native host engine:
+    fp32, and fp64 below MIN_ACCEPTED, as the engines' epilogue does."""
+    from acc_genomics_tpu_torch import native
+    from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext
+
+    raw = native.pairhmm_forward(tcs, np.float32)
+    out = loglik(raw, PairHMMContext(np.float32).log10_initial_constant)
+    low = np.flatnonzero(raw < MIN_ACCEPTED)
+    if len(low):
+        out[low] = loglik(native.pairhmm_forward([tcs[k] for k in low], np.float64),
+                          PairHMMContext(np.float64).log10_initial_constant)
+    return out, len(low)
 
 
 def masked_max_abs(a, b, region, step: int = 512) -> int:
@@ -999,6 +1027,236 @@ def pipeline_phase(card: str, engines, fm, genome, bwa_reads, seeding_hits,
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **fused_bound}
 
 
+def mesh_phase(card: str, dev) -> dict:
+    """Phase 15 on a (1, 4) mesh of the card: the band kernel against its
+    plain version on the first and a middle superstep of the main path's
+    pipeline; PairHMMEngine(mesh=...) on 2,048 pairs whose haplotypes are
+    all past 1024 columns (every pair on the band pipeline) against the
+    native host engine and the oracle, and against the same batch on the
+    native host engine (the route without a mesh); SP against the DP
+    kernel on pairs that fit; the edges and GenomicsEngine(mesh=...).
+    Returns the band kernel's kernels-line entry."""
+    import torch
+
+    import acc_genomics_tpu_torch.engine.pairhmm_engine as engine_module
+    import acc_genomics_tpu_torch.parallel.sharded as sharded_module
+    from acc_genomics_tpu_torch.engine.genomics_engine import GenomicsEngine
+    from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
+    from acc_genomics_tpu_torch.io.synth import (
+        gen_pairhmm_input,
+        gen_reference_with_repeats,
+        gen_smem_reads,
+        gen_sw_batch,
+    )
+    from acc_genomics_tpu_torch.ops.pairhmm import band_kernel as BK
+    from acc_genomics_tpu_torch.ops.pairhmm import kernel as K
+    from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext
+    from acc_genomics_tpu_torch.ops.pairhmm.convert import batch_to_torch
+    from acc_genomics_tpu_torch.ops.pairhmm.pack import pack_pairhmm_batch
+    from acc_genomics_tpu_torch.parallel import make_mesh, pairhmm_forward_dpsp
+
+    ctx = PairHMMContext(np.float32)
+    mesh = make_mesh((1, 4), devices=[dev] * 4)
+    # seed 13: the first from 11 whose longest haplotype passes 3584, so
+    # the SP pack has 4096 columns and each shard's slab is 1024
+    rng = np.random.default_rng(13)
+    reads, haps = gen_pairhmm_input(rng, MESH_READS, MESH_HAPS, max_read_len=MESH_READ_LEN,
+                                    max_hap_len=MESH_HAP_LEN, derived=True)
+    f = flat_matrix_args(reads, haps)
+    tcs = [dict(hap=h, **r) for r in reads for h in haps]
+    n_pairs = len(tcs)
+    cells = int(sum(len(t["rs"]) * len(t["hap"]) for t in tcs))
+    hl = [len(h) for h in haps]
+    say(f"mesh batch: {n_pairs} pairs, reads {min(len(r['rs']) for r in reads)}-"
+        f"{max(len(r['rs']) for r in reads)}, haps {min(hl)}-{max(hl)}, {cells} cells; "
+        f"mesh {mesh}")
+    check(min(hl) > 1024 and max(hl) <= 4 * 1024, "every haplotype past 1024, within 4096")
+
+    # -- 15a. band kernel vs plain on two supersteps, C = 8 and the engine's -------
+    eng = PairHMMEngine(device=dev, mesh=mesh)
+    C = engine_module.SP_CHUNK_ROWS
+    rows = eng.config.read_buckets[-1]
+    n_steps = rows // C + mesh.shape["seq"] - 1
+    band_calls, sp_calls = [], []
+    with capture_calls(sharded_module, "pairhmm_band_chunk", band_calls,
+                       keep=(0, n_steps // 2)), \
+            capture_calls(engine_module, "pairhmm_forward_dpsp", sp_calls):
+        first = eng.compute_matrix_flat(*f)  # warm-up
+    torch.cuda.synchronize()
+    sp_args = sp_calls[0][0][1:]  # after the mesh
+    hc = (sp_args[9].shape[0] - rows) // mesh.shape["seq"]
+    check(hc == 1024, f"SP slab {hc} columns")
+    c8_calls = []
+    with capture_calls(sharded_module, "pairhmm_band_chunk", c8_calls,
+                       keep=(0, (rows // 8 + mesh.shape["seq"] - 1) // 2)):
+        res8 = pairhmm_forward_dpsp(mesh, *sp_args, C=8)
+    err = 0.0
+    for (args, _), name in zip(c8_calls + band_calls, ("first, C 8", "middle, C 8",
+                                                       f"first, C {C}", f"middle, C {C}")):
+        got = BK.pairhmm_band_chunk(*args)
+        want = BK.pairhmm_band_chunk_plain(*args)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for out, g, w in zip(("bot_m", "bot_x", "bot_s", "redge_m", "redge_y", "redge_s"),
+                             got, want):
+            g64, w64 = g.double(), w.double()
+            diff = (g64 - w64).abs()
+            off = int((diff > RAW_RTOL * w64.abs() + RAW_ATOL).sum())
+            check(off == 0 and bool(torch.isfinite(g).all()),
+                  f"band kernel vs plain, {name} superstep, {out}: {off} values off")
+            worst = max(worst, float(diff.max()) / float(ctx.initial_constant))
+        if name.startswith("middle"):  # a chunk whose boundary streams carry mass
+            check(all(bool(args[k].any()) for k in (3, 4, 6, 8)),
+                  f"middle superstep ({name}): a top or edge stream all zero")
+        err = max(err, worst)
+        say(f"pairhmm_band_chunk vs plain, {name}: slots x C x hc x lanes "
+            f"{(args[0].shape[0], args[0].shape[2], args[2].shape[1], args[0].shape[3])}; "
+            f"every value within rtol {RAW_RTOL}; max_abs_err {worst:.3e} (probability units)")
+    timed = {}
+    for name, (args, _) in (("C 8", c8_calls[1]), (f"C {C}", band_calls[1])):
+        slots, c_rows, _, lanes = args[0].shape
+        k_ms = cuda_time_ms(lambda: BK.pairhmm_band_chunk(*args))
+        p_ms = cuda_time_ms(lambda: BK.pairhmm_band_chunk_plain(*args), repeats=1, warm=False)
+        band_bound = bound(*BK.band_bound_terms(c_rows, hc, slots * lanes), FP32_OPS_PER_S)
+        timed[name] = (k_ms, p_ms, band_bound)
+        say(f"pairhmm_band_chunk, middle superstep, {name} ({slots} slots x {lanes} lanes, "
+            f"hc {hc}): kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound {band_bound} [{card}]")
+    k_ms, p_ms, band_bound = timed[f"C {C}"]
+    del band_calls, c8_calls
+
+    spans = {}
+    for c in (8, 16, 32):
+        res = pairhmm_forward_dpsp(mesh, *sp_args, C=c)
+        check(torch.equal(res, res8), f"C {c} changed a bit of the SP result")
+        spans[c] = cuda_time_ms(lambda: pairhmm_forward_dpsp(mesh, *sp_args, C=c), repeats=5)
+    say(f"pairhmm_forward_dpsp on the main path's pack ({sp_args[0].shape[1]} lanes, "
+        f"{rows} rows, {sp_args[9].shape[0] - rows} cols): CUDA-event span ms by C {spans}; "
+        f"results equal bit for bit; the engine runs C {C} [{card}]")
+    del sp_calls, sp_args
+
+    # -- 15b. PairHMMEngine(mesh=...) main path -----------------------------------
+    eng.reset_anatomy()
+    s0 = dict(eng.stats)
+    K.LAUNCHES.clear()
+    BK.LAUNCHES.clear()
+    times, liks = [], []
+    for _ in range(HC_REPEATS):
+        t0 = time.perf_counter()
+        liks.append(eng.compute_matrix_flat(*f))
+        times.append(time.perf_counter() - t0)
+    launches = dict(BK.LAUNCHES)
+    dp_launches = dict(K.LAUNCHES)
+    med = statistics.median(times)
+    anatomy = {k: round(v / HC_REPEATS, 6) for k, v in eng.anatomy.items()}
+    sp_pairs = eng.stats["sp_pairs"] - s0["sp_pairs"]
+    say(f"PairHMMEngine(mesh=(1, 4)) compute_matrix_flat: {n_pairs} pairs, {cells} cells; "
+        f"e2e_s median={med:.5f} min={min(times):.5f} max={max(times):.5f} (n={HC_REPEATS}); "
+        f"gcups median={cells / med / 1e9:.3f} min={cells / max(times) / 1e9:.3f} "
+        f"max={cells / min(times) / 1e9:.3f}; anatomy s per call {anatomy}; launches "
+        f"{launches} {dp_launches}; sp_pairs {sp_pairs} host_fallback "
+        f"{eng.stats.get('host_fallback', 0)} [{card}]")
+    check(sp_pairs == HC_REPEATS * n_pairs and eng.stats.get("host_fallback", 0) == 0,
+          "every pair on the SP route, none on the host")
+    check(launches.get("pairhmm_band_chunk") == HC_REPEATS * n_steps and not dp_launches,
+          f"band launches {launches}, other launches {dp_launches}")
+    lik = liks[0]
+    check(lik.shape == (len(reads), len(haps)) and np.isfinite(lik).all()
+          and all(np.array_equal(x, lik) for x in liks) and np.array_equal(first, lik),
+          "mesh engine output shape, finite values, repeated calls equal")
+    check(np.array_equal(eng.compute_matrix(reads, haps), lik),
+          "compute_matrix vs compute_matrix_flat on the mesh")
+
+    t0 = time.perf_counter()
+    want, n_low = host_loglik(tcs)
+    host_s = time.perf_counter() - t0
+    rel = np.abs(lik.reshape(-1) - want) / np.abs(want)
+    say(f"mesh engine vs native fp32 host on {n_pairs} pairs: max_rel={rel.max():.3e} "
+        f"({n_low} below {MIN_ACCEPTED}, fp64 there); the native forward alone "
+        f"{host_s:.3f} s")
+    check(rel.max() < RTOL_HOST, f"mesh engine vs native host {rel.max()}")
+    sample = np.random.default_rng(12).choice(n_pairs, min(16, n_pairs), replace=False)
+    orc = oracle([tcs[k] for k in sample])
+    rel_o = np.abs(lik.reshape(-1)[sample] - orc) / np.abs(orc)
+    say(f"mesh engine vs fp64 oracle ({len(sample)} sampled pairs): max_rel={rel_o.max():.3e}")
+    check(rel_o.max() < RTOL_ORACLE, f"mesh engine vs oracle {rel_o.max()}")
+
+    host_eng = PairHMMEngine(device=dev)
+    host_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host_lik = host_eng.compute_matrix_flat(*f)
+        host_times.append(time.perf_counter() - t0)
+    hmed = statistics.median(host_times)
+    say(f"same batch without a mesh (native host engine, host_fallback "
+        f"{host_eng.stats['host_fallback']}): e2e_s median={hmed:.5f} min={min(host_times):.5f} "
+        f"max={max(host_times):.5f} (n=3) gcups median={cells / hmed / 1e9:.3f}; mesh route "
+        f"{hmed / med:.2f}x [{card}]")
+    check(np.max(np.abs(host_lik - lik) / np.abs(host_lik)) < RTOL_HOST,
+          "mesh route vs the route without a mesh")
+
+    # -- 15c. SP against DP on pairs that fit --------------------------------------
+    fit_r, fit_h = gen_pairhmm_input(np.random.default_rng(13), MESH_READS, MESH_HAPS,
+                                     max_read_len=MESH_READ_LEN, max_hap_len=1024, derived=True)
+    fit = [dict(hap=h, **r) for r in fit_r for h in fit_h]
+    args = batch_to_torch(pack_pairhmm_batch(fit, rows=256, cols=1024), dev)
+    sp = pairhmm_forward_dpsp(mesh, *args).cpu().numpy()
+    dp = K.pairhmm_forward(*args).cpu().numpy()
+    kernel_vs_plain("SP (seq 4) vs DP kernel, haps <= 1024", sp, dp, ctx.log10_initial_constant)
+
+    # -- 15d. edges -----------------------------------------------------------------
+    erng = np.random.default_rng(14)
+    base = dict(reads[0])
+    n_rich = erng.integers(0, 4, 2000).astype(np.uint8)
+    n_rich[erng.random(2000) < 0.3] = 4
+    mis_hap = erng.integers(0, 4, 2000).astype(np.uint8)
+    mism = dict(rs=((mis_hap[:120] + 2) % 4).astype(np.uint8), q=np.full(120, 50, np.uint8),
+                i=np.full(120, 45, np.uint8), d=np.full(120, 45, np.uint8),
+                c=np.full(120, 10, np.uint8), hap=mis_hap)
+    edge = [dict(base, hap=np.resize(haps[0], 1024)), dict(base, hap=np.resize(haps[0], 1025)),
+            dict(base, hap=np.resize(haps[0], 4097)), dict(base, hap=n_rich), mism]
+    eng_e = PairHMMEngine(device=dev, mesh=mesh)
+    eng_e.min_device_cells = 0
+    got = eng_e.compute_pairs(edge)
+    orc = oracle(edge)
+    rel = np.abs(got - orc) / np.abs(orc)
+    st = eng_e.stats
+    say(f"mesh edges (haps 1024, 1025, 4097, 30% N, all-mismatch): sp_pairs {st['sp_pairs']} "
+        f"host_fallback {st['host_fallback']} device_calls {st['device_calls']} recomputed "
+        f"{st['recomputed']}; max_rel vs oracle {rel.max():.3e}")
+    check(st["sp_pairs"] == 3 and st["host_fallback"] == 1 and st["device_calls"] == 1
+          and st["recomputed"] >= 1 and rel.max() < RTOL_ORACLE, "mesh edges")
+
+    facades = [GenomicsEngine(device=dev, mesh=make_mesh((2, 2), devices=[dev] * 4)),
+               GenomicsEngine(device=dev)]
+    for e in facades:
+        e.pairhmm.min_device_cells = 0
+    r_s, h_s = gen_pairhmm_input(erng, 16, 4, max_read_len=100, max_hap_len=2048, derived=True)
+    got = facades[0].pairhmm_matrix(r_s, h_s).reshape(-1)
+    tcs_s = [dict(hap=h, **r) for r in r_s for h in h_s]
+    want_s = host_loglik(tcs_s)[0]
+    check(np.max(np.abs(got - want_s) / np.abs(want_s)) < RTOL_HOST
+          and facades[0].pairhmm.stats.get("sp_pairs", 0) > 0,
+          "GenomicsEngine(mesh=(2, 2)) PairHMM vs native host")
+    ref, alts = gen_sw_batch(erng, 64, ref_len=200)
+    sw = [e.sw_align(ref, alts, 0) for e in facades]
+    _, seeds = extend_bench_seeds(256)
+    ext = [e.extend_seeds(seeds) for e in facades]
+    genome = gen_reference_with_repeats(erng, 20_000)
+    sreads = gen_smem_reads(erng, genome, 256, read_len=101)
+    fm = facades[0].load_reference(genome)
+    facades[1].set_index(fm)
+    sm = [e.smem_collect(sreads) for e in facades]
+    check(sw[0] == sw[1] and ext[0] == ext[1] and sm[0] == sm[1],
+          "GenomicsEngine(mesh=(2, 2)) SW, extension, SMEM vs the facade without a mesh")
+    say(f"GenomicsEngine(mesh=(2, 2)): PairHMM ({len(tcs_s)} pairs, sp_pairs "
+        f"{facades[0].pairhmm.stats.get('sp_pairs', 0)}) within {RTOL_HOST} of the native host; SW "
+        f"{len(alts)} pairs, extension {len(seeds)} seeds, SMEM {len(sreads)} reads equal to "
+        f"the facade without a mesh")
+    return {"name": "pairhmm_band_chunk", "route": "cuda", "source": BAND_SOURCE,
+            "replaces": BAND_TPU, "launches": launches.get("pairhmm_band_chunk", 0),
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **band_bound}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "acc_genomics_tpu_torch")):
         # run alone, outside a checkout: there is no port to drive
@@ -1014,6 +1272,7 @@ def main() -> int:
     import acc_genomics_tpu_torch.engine.pairhmm_engine as engine_module
     from acc_genomics_tpu_torch.build import ensure_native, find_nvcc
     from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
+    from acc_genomics_tpu_torch.ops.pairhmm import band_kernel as BK
     from acc_genomics_tpu_torch.ops.pairhmm import kernel as K
     from acc_genomics_tpu_torch.ops.extend import kernel as EK
     from acc_genomics_tpu_torch.ops.smem import kernel as MK
@@ -1056,10 +1315,12 @@ def main() -> int:
 
     # -- 2. build: one nvcc per source, all started together ------------------
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        futures = [pool.submit(K.build_kernels), pool.submit(SK.build_kernels),
-                   pool.submit(EK.build_kernels), pool.submit(MK.build_kernels)]
-        libs = [futures[0].result()] + [b for f in futures[1:] for b in f.result().values()]
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+        futures = [pool.submit(K.build_kernels), pool.submit(BK.build_kernels),
+                   pool.submit(SK.build_kernels), pool.submit(EK.build_kernels),
+                   pool.submit(MK.build_kernels)]
+        libs = [f.result() for f in futures[:2]] + [b for f in futures[2:]
+                                                    for b in f.result().values()]
     wall = time.perf_counter() - t0
     for built in libs:
         say(f"build: {built.path} built={built.built} nvcc_s={built.seconds:.2f}")
@@ -1279,10 +1540,13 @@ def main() -> int:
     extend_entry = extend_phases(card, dev)
     smem_entry, fused_entry = smem_bwa_phases(card, dev, extend_entry)
 
+    # -- 15. the mesh path: band kernel, DP x SP, GenomicsEngine(mesh=...) ------
+    band_entry = mesh_phase(card, dev)
+
     check(not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "acc_genomics_tpu" or m.startswith("acc_genomics_tpu.")],
           "a phase imported jax or the JAX package")
-    entries = [pairhmm_entry, *sw_entries, extend_entry, smem_entry, fused_entry]
+    entries = [pairhmm_entry, *sw_entries, extend_entry, smem_entry, fused_entry, band_entry]
     check(all(e["launches"] > 0 for e in entries),
           f"a kernel no main path launched: {[(e['name'], e['launches']) for e in entries]}")
     say(json.dumps({"kernels": entries}))

@@ -10,6 +10,9 @@ its plain PyTorch version in log space rtol 1e-5 (the kernel contracts
 multiply-adds into fmas and sums in another order); inert lanes exactly 0.
 The SW, extension and SMEM kernels are integer: bit-exact against their
 plain versions, and their engines exact against the native host engines.
+The band kernel against its plain version: every output within rtol 1e-5
+of its largest value; the SP route within 2e-4 of the native fp32 host
+engine and within 1e-5 of the DP kernel (another summation order).
 """
 
 import os
@@ -38,7 +41,7 @@ from acc_genomics_tpu_torch.engine.extend_engine import (
 )
 from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext
 from acc_genomics_tpu_torch.ops.pairhmm.pack import pack_pairhmm_batch, pack_pairhmm_quals
-from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
+from acc_genomics_tpu_torch.engine.pairhmm_engine import SP_CHUNK_ROWS, PairHMMEngine
 from acc_genomics_tpu_torch.engine.smem_engine import SmemEngine
 from acc_genomics_tpu_torch.engine.sw_engine import SWEngine
 from acc_genomics_tpu_torch.models import BwaEngines, BwaMemDevicePipeline, BwaMemSeeding
@@ -48,6 +51,8 @@ from acc_genomics_tpu_torch.ops.smem import kernel as MK
 from acc_genomics_tpu_torch.ops.smem.table import DeviceIndex
 from acc_genomics_tpu_torch.ops.sw import kernel as SK
 from acc_genomics_tpu_torch.ops.sw.batch import pack_planes
+from acc_genomics_tpu_torch.ops.pairhmm import band_kernel as BK
+from acc_genomics_tpu_torch.parallel import make_mesh, pairhmm_forward_dp, pairhmm_forward_dpsp
 from acc_genomics_tpu_torch.ops.pairhmm.convert import (
     batch_to_torch,
     context_tables,
@@ -350,3 +355,63 @@ def test_cuda_pipeline_matches_bwa_mem_seeding(cuda):
     got = pipe.map_reads(reads)
     assert got == BwaMemSeeding(eng, max_occ=4, flank=100).map_reads(reads)
     assert got[-1] and got[500] == []  # the host route; the all-N read
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [8, 16, 32])
+def test_cuda_band_kernel_matches_plain(cuda, C):
+    """Three slots of 300 lanes (not a multiple of a block's problems),
+    random non-zero streams, N and padded hap columns."""
+    rng = np.random.default_rng(C)
+    S, hc, B = 3, 96, 300
+    hap = (1 << rng.integers(0, 4, (S, hc, B))).astype(np.int32)
+    hap[rng.random(hap.shape) < 0.05] = 15
+    hap[:, hc - 10:, :50] = 16
+    args = [rng.uniform(0.05, 1.0, (S, 8, C, B)).astype(np.float32),
+            rng.integers(0, 5, (S, C, B)).astype(np.int32), hap]
+    args += [rng.uniform(0.1, 2.0, (S, hc + 1, B)).astype(np.float32) for _ in range(3)]
+    args += [rng.uniform(0.1, 2.0, (S, C + 1, B)).astype(np.float32) for _ in range(3)]
+    args = [torch.from_numpy(a).to(cuda) for a in args]
+    before = BK.LAUNCHES["pairhmm_band_chunk"]
+    got = BK.pairhmm_band_chunk(*args)
+    assert BK.LAUNCHES["pairhmm_band_chunk"] == before + 1
+    want = BK.pairhmm_band_chunk_plain(*args)
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * scale)
+    one = BK.pairhmm_band_chunk(*(a[1] for a in args))  # no slot axis
+    for g, w in zip(one, got):
+        assert torch.equal(g, w[1])
+    with pytest.raises(ValueError, match="chunk rows"):
+        BK.pairhmm_band_chunk(args[0][:, :, :4], args[1][:, :4], *args[2:6],
+                              *(e[:, :5] for e in args[6:]))
+
+
+@pytest.mark.gpu
+def test_cuda_sp_engine_matches_native_host(cuda):
+    """Haps past 1024 on PairHMMEngine(mesh=(1, 4) of one card): every
+    pair on the band pipeline, none on the host; SP against DP on a pack
+    that fits."""
+    rng = np.random.default_rng(3)
+    reads, haps = gen_pairhmm_input(rng, 24, 3, max_read_len=150, max_hap_len=2400,
+                                    derived=True)
+    mesh = make_mesh((1, 4), devices=[cuda] * 4)
+    eng = PairHMMEngine(device="cuda", mesh=mesh)
+    eng.min_device_cells = 0
+    before = BK.LAUNCHES["pairhmm_band_chunk"]
+    got = eng.compute_matrix(reads, haps).reshape(-1)
+    assert BK.LAUNCHES["pairhmm_band_chunk"] - before == 256 // SP_CHUNK_ROWS + 4 - 1
+    assert eng.stats["sp_pairs"] == 72 and eng.stats.get("host_fallback", 0) == 0
+    tcs = [dict(hap=h, **r) for r in reads for h in haps]
+    ctx = PairHMMContext(np.float32)
+    raw = native.pairhmm_forward(tcs, np.float32)
+    assert (raw >= 1e-28).all()
+    want = np.log10(raw.astype(np.float64)) - np.float64(ctx.log10_initial_constant)
+    np.testing.assert_allclose(got, want, rtol=2e-4)
+
+    pack = pack_pairhmm_batch(gen_pairhmm_pairs(rng, 200, max_read_len=100, max_hap_len=512),
+                              rows=128, cols=512)
+    args = batch_to_torch(pack, cuda)
+    sp = pairhmm_forward_dpsp(mesh, *args).cpu().numpy()
+    dp = pairhmm_forward_dp(make_mesh((2, 1), devices=[cuda] * 2), *args).cpu().numpy()
+    np.testing.assert_allclose(sp, dp, rtol=1e-5, atol=float(np.finfo(np.float32).tiny))

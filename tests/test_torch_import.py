@@ -39,7 +39,8 @@ def test_port_imports_without_jax():
     """This process has jax and the JAX package loaded (conftest, the
     imports above), so import every port module in a fresh one, run the
     paths that import lazily (FMIndex.build's suffix array, the native
-    quals pack, a native call), then read sys.modules."""
+    quals pack, a native call, the mesh forms on CPU devices), then read
+    sys.modules."""
     code = "import sys\n" + "".join(f"import {m}\n" for m in PORT_MODULES) + """
 import numpy as np
 from acc_genomics_tpu_torch import native
@@ -52,7 +53,12 @@ fm = FMIndex.build(gen_reference_with_repeats(rng, 3000))
 assert fm.sa.shape == (fm.seq_len + 1,)
 pairs = gen_pairhmm_pairs(rng, 4)
 pack_pairhmm_quals(pairs, rows=64, cols=128)
-pack_pairhmm_batch(pairs, rows=64, cols=128)
+pk = pack_pairhmm_batch(pairs, rows=64, cols=128)
+import torch
+from acc_genomics_tpu_torch.parallel import make_mesh, pairhmm_forward_dp, pairhmm_forward_dpsp
+mesh = make_mesh((2, 2), devices=["cpu"] * 4)
+args = [torch.from_numpy(a) for a in pk.arrays()]
+assert torch.allclose(pairhmm_forward_dpsp(mesh, *args), pairhmm_forward_dp(mesh, *args), rtol=1e-5)
 SmemConfig().params(); SWConfig().params(); ExtendConfig().params()
 assert native.available()
 assert native.sw_align_host([np.zeros(8, np.uint8)], [np.zeros(8, np.uint8)], 0)
@@ -67,6 +73,10 @@ print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')
     assert out.stdout.strip().splitlines()[-1] == "[]"
     assert "acc_genomics_tpu_torch.native" in PORT_MODULES
     assert "acc_genomics_tpu_torch.engine.genomics_engine" in PORT_MODULES
+    assert {"acc_genomics_tpu_torch.parallel", "acc_genomics_tpu_torch.parallel.mesh",
+            "acc_genomics_tpu_torch.parallel.sharded",
+            "acc_genomics_tpu_torch.parallel.sharded_kernels",
+            "acc_genomics_tpu_torch.ops.pairhmm.band_kernel"} <= set(PORT_MODULES)
 
 
 @pytest.mark.parametrize("path", PORT_FILES)

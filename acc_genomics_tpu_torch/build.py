@@ -151,17 +151,20 @@ def ensure_native(build_dir: str = BUILD_DIR) -> bool:
     return native.available()
 
 
-def load_library(name: str, sources: Sequence[str]) -> BuiltLibrary:
+def load_library(name: str, sources: Sequence[str],
+                 headers: Sequence[str] = ()) -> BuiltLibrary:
     """Build (if needed) and load ``lib<name>-<hash>.so`` from ``sources``
-    (paths relative to the package directory).  Libraries of different
-    names build in parallel when called from several threads."""
+    (paths relative to the package directory; ``headers`` are the files
+    they include, hashed with them).  Libraries of different names build
+    in parallel when called from several threads."""
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:
         if name in _libs:
             return _libs[name]
         paths = [os.path.join(PACKAGE_DIR, s) for s in sources]
-        out = os.path.join(BUILD_DIR, f"lib{name}-{_source_hash(paths)}.so")
+        digest = _source_hash(paths + [os.path.join(PACKAGE_DIR, h) for h in headers])
+        out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
         built, seconds, log = False, 0.0, ""
         if not os.path.exists(out):
             os.makedirs(BUILD_DIR, exist_ok=True)

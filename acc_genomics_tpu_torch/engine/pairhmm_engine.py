@@ -10,9 +10,11 @@ of the reference's FalconPairHMM::computePairhmm dispatch):
 * with a ``mesh`` (``parallel/mesh.py``), the buckets are packed as fp32
   coefficient planes and run data-parallel (``pairhmm_forward_dp``), and
   a pair whose haplotype is past ``max_hap_len`` but within
-  ``max_hap_len`` x seq runs on the DP x SP band pipeline
-  (``pairhmm_forward_dpsp``) instead of the host; the flat entry points
-  take the dict path;
+  ``max_hap_len`` x seq runs on the DP x SP band pipeline instead of the
+  host: byte planes, staged and uploaded like the buckets below, the
+  band kernel expanding the coefficients
+  (``pairhmm_forward_dpsp_from_quals``) at a chunk of ``sp_chunk_rows``
+  rows; the flat entry points take the dict path;
 * the device route ships uint8 byte planes (quals, codes, hap) and the
   kernel expands the coefficients itself (``config.quals_expand``);
 * fp32 results below ``config.min_accepted`` are recomputed in fp64 on
@@ -39,33 +41,49 @@ import torch
 from acc_genomics_tpu_torch.build import ensure_native
 from acc_genomics_tpu_torch.device import resolve_device
 from acc_genomics_tpu_torch.engine.bucketing import plan_buckets
+from acc_genomics_tpu_torch.ops.pairhmm.band_kernel import CHUNK_ROWS
 from acc_genomics_tpu_torch.ops.pairhmm.convert import batch_to_torch, context_tables
 from acc_genomics_tpu_torch.ops.pairhmm.kernel import pairhmm_forward_from_quals
 from acc_genomics_tpu_torch import native
 from acc_genomics_tpu_torch.config import PairHMMConfig
 from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext
 from acc_genomics_tpu_torch.ops.pairhmm.pack import pack_pairhmm_batch, pack_pairhmm_quals
-from acc_genomics_tpu_torch.parallel.sharded import pairhmm_forward_dp, pairhmm_forward_dpsp
+from acc_genomics_tpu_torch.parallel.sharded import (
+    pairhmm_forward_dp,
+    pairhmm_forward_dpsp_from_quals,
+)
 from acc_genomics_tpu_torch.utils.convert import HAP_PAD
 from acc_genomics_tpu_torch.utils.timer import Timer
 
-# C of the band pipeline on the SP route: a full warp a chunk.  C changes
-# no bit of the result; 32 makes 4x fewer supersteps than JAX's 8, and the
-# pipeline on chip_smoke.py's phase-15 pack took 0.57x the time on an
-# H100.  The largest read bucket must divide by it.
+# the preferred C of the band pipeline on the SP route.  C changes no bit
+# of the result; of the three, 32 gave the shortest pipeline on
+# chip_smoke.py's phase-15 pack on an H100 (fewest supersteps; PERF.md).
 SP_CHUNK_ROWS = 32
+
+
+def sp_chunk_rows(rows: int) -> int:
+    """C of the band pipeline for an SP pack of ``rows`` rows (the largest
+    read bucket): SP_CHUNK_ROWS when it divides ``rows``, else the largest
+    C of CHUNK_ROWS that does."""
+    for c in (SP_CHUNK_ROWS, *sorted(CHUNK_ROWS, reverse=True)):
+        if rows % c == 0:
+            return c
+    raise ValueError(f"rows {rows} must divide by a chunk size of {CHUNK_ROWS}")
 
 
 @dataclasses.dataclass
 class _Bucket:
-    """One kernel launch: ``planes`` stack to the (5*rows + rows + cols, bp)
-    byte region q, i, d, c, rs, hap_ext; lane k holds pair ``sel[k]``."""
+    """One launch: ``planes`` stack to the (5*rows + rows + cols, bp) byte
+    region q, i, d, c, rs, hap_ext; lane k holds pair ``sel[k]`` (lanes
+    past ``len(sel)`` are padding).  ``sp_chunk_rows`` > 0 runs it on the
+    mesh's DP x SP band pipeline at that C, else on the forward kernel."""
 
     sel: np.ndarray
     planes: List[np.ndarray]
     lens: np.ndarray  # (bp,) int32
     hlens: np.ndarray  # (bp,) int32
     rows: int
+    sp_chunk_rows: int = 0
 
 
 @dataclasses.dataclass
@@ -155,7 +173,8 @@ class PairHMMEngine:
 
     def _launch(self, buckets: Sequence[_Bucket]) -> _Pending:
         """Stage every bucket in one host buffer, upload it once, launch
-        one kernel per bucket and start one D2H copy of all results."""
+        one kernel (or one band pipeline) per bucket and start one D2H
+        copy of all results."""
         u8_offs, off = [], 0
         for b in buckets:
             u8_offs.append(off)
@@ -187,13 +206,18 @@ class PairHMMEngine:
                 q, i, d, c, rs = (region[k * rows : (k + 1) * rows] for k in range(5))
                 hap_ext = region[5 * rows :]
                 meta = dev[mo : mo + 8 * bp].view(torch.int32).view(2, bp)
-                outs.append(
-                    pairhmm_forward_from_quals(
+                if b.sp_chunk_rows:
+                    res = pairhmm_forward_dpsp_from_quals(
+                        self.mesh, q, i, d, c, rs, hap_ext, meta[0], meta[1],
+                        *self._tables, ic, expand=expand, C=b.sp_chunk_rows,
+                    ).to(self.device)
+                else:
+                    res = pairhmm_forward_from_quals(
                         q, i, d, c, rs, hap_ext, meta[0], meta[1],
                         *self._tables, ic, expand=expand,
                     )
-                )
-                self.stats["device_calls"] += 1
+                    self.stats["device_calls"] += 1
+                outs.append(res[: len(b.sel)])
             allres = torch.cat(outs)
             done = None
             if self._cuda:
@@ -303,28 +327,32 @@ class PairHMMEngine:
 
     def _run_mesh(self, testcases, plan, fits_arr, sp_idx, raw: np.ndarray):
         """The mesh route: each bucket packed as fp32 coefficient planes and
-        run data-parallel, the long haplotypes (``sp_idx``) packed at the
-        largest read bucket and ``seq`` x 128-aligned columns and run on the
-        DP x SP pipeline; one D2H copy brings every result into ``raw``."""
-        jobs = []
+        run data-parallel; the long haplotypes (``sp_idx``) packed as byte
+        planes at the largest read bucket and ``seq`` x 128-aligned
+        columns, staged and uploaded once (``_launch``) and run on the
+        DP x SP pipeline.  Every result lands in ``raw``."""
+        jobs, sp_pending = [], None
         with self._on_stream():
             if sp_idx:
                 self.stats["sp_pairs"] = self.stats.get("sp_pairs", 0) + len(sp_idx)
                 t0 = time.perf_counter()
+                rows = self.config.read_buckets[-1]
+                C = self.stats["sp_chunk_rows"] = sp_chunk_rows(rows)
                 step = self._seq_size * 128
                 max_hl = max(len(testcases[k]["hap"]) for k in sp_idx)
-                pack = pack_pairhmm_batch(
-                    [testcases[k] for k in sp_idx], rows=self.config.read_buckets[-1],
-                    cols=-(-max_hl // step) * step, dtype=np.float32,
-                    lane_multiple=self._data_size,
+                pack = pack_pairhmm_quals(
+                    [testcases[k] for k in sp_idx], rows=rows,
+                    cols=-(-max_hl // step) * step, lane_multiple=self._data_size,
                 )
                 t1 = time.perf_counter()
                 self.anatomy["sp_pack_s"] += t1 - t0
-                res = pairhmm_forward_dpsp(
-                    self.mesh, *batch_to_torch(pack, self.device), C=SP_CHUNK_ROWS
-                )
+                sp_pending = self._launch([_Bucket(
+                    np.asarray(sp_idx, np.int64),
+                    [pack.q, pack.i, pack.d, pack.c, pack.rs, pack.hap_ext],
+                    pack.rslen, pack.haplen, rows, C,
+                )])
+                self.stats["h2d_bytes"] = self.stats.get("h2d_bytes", 0) + sp_pending.h2d_bytes
                 self.anatomy["launch_s"] += time.perf_counter() - t1
-                jobs.append((np.asarray(sp_idx, np.int64), pack, res))
             for (rows, cols), idxs in plan.groups.items():
                 max_pairs = self.config.max_batch_pairs
                 for lo in range(0, len(idxs), max_pairs):
@@ -341,14 +369,16 @@ class PairHMMEngine:
                     res = pairhmm_forward_dp(self.mesh, *batch_to_torch(pack, self.device))
                     self.anatomy["launch_s"] += time.perf_counter() - t1
                     jobs.append((chunk, pack, res))
+            t0 = time.perf_counter()
             if jobs:
-                t0 = time.perf_counter()
                 allres = torch.cat([res for _, _, res in jobs]).cpu().numpy()
-                self.anatomy["fetch_s"] += time.perf_counter() - t0
                 col = 0
                 for chunk, pack, res in jobs:
                     raw[chunk] = pack.unsort(allres[col : col + len(res)])
                     col += len(res)
+            if sp_pending is not None:
+                sp_pending.scatter(raw)
+            self.anatomy["fetch_s"] += time.perf_counter() - t0
 
     def _epilogue(self, testcases, raw: np.ndarray) -> np.ndarray:
         """log10 conversion + fp64 recompute of fp32 underflows (the

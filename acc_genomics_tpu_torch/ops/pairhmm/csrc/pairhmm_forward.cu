@@ -53,17 +53,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "pairhmm_common.cuh"
+
 namespace {
+
+using namespace pairhmm;
 
 constexpr int kMaxRows = 256;
 constexpr int kMaxCols = 1024;
-constexpr int kBaseN = 4;
-constexpr int kHapPad = 5;
-constexpr uint32_t kPadMask = 16;
-// float32(-log2(10) / 10), as the reference front end rounds it
-constexpr float kQualToLog2 = (float)(-3.321928094887362 / 10.0);
-
-enum FrontEnd { kCoef = 0, kQualsArith = 1, kQualsGather = 2 };
 
 struct CoefPlanes {
   const float* p_mm;
@@ -93,51 +90,11 @@ struct QualPlanes {
   float initial_constant;
 };
 
-__device__ __forceinline__ uint32_t hap_code_mask(int code) {
-  return code >= kHapPad ? kPadMask
-                         : (code == kBaseN ? 15u : (1u << (code & 31)));
-}
-
-__device__ __forceinline__ uint32_t read_code_mask(int code) {
-  return code == kBaseN ? 15u : (1u << (code & 31));
-}
-
-struct RowCoef {
-  float p_mm, p_gapm, p_mx, p_xx, p_my, p_yy, em_m, em_x;
-  uint32_t rmask;
-};
-
-template <int FE>
-__device__ __forceinline__ float qual_prob(int qv, const float* ph2pr) {
-  if (FE == kQualsArith) return exp2f((float)qv * kQualToLog2);
-  return ph2pr[qv];
-}
-
 template <int FE>
 __device__ __forceinline__ RowCoef load_quals_row(const QualPlanes& a,
                                                   int64_t at) {
-  const int qq = a.q[at] & 127, qi = a.iq[at] & 127, qd = a.dq[at] & 127,
-            qc = a.cq[at] & 127;
-  const float pe_q = qual_prob<FE>(qq, a.ph2pr);
-  const float pe_i = qual_prob<FE>(qi, a.ph2pr);
-  const float pe_d = qual_prob<FE>(qd, a.ph2pr);
-  const float pe_c = qual_prob<FE>(qc, a.ph2pr);
-  RowCoef r;
-  if (FE == kQualsArith) {
-    r.p_mm = 1.0f - fminf(1.0f, pe_i + pe_d);
-  } else {
-    const int lo = qi < qd ? qi : qd, hi = qi < qd ? qd : qi;
-    r.p_mm = a.m2m[((hi * (hi + 1)) >> 1) + lo];
-  }
-  r.p_gapm = 1.0f - pe_c;
-  r.p_mx = pe_i;
-  r.p_xx = pe_c;
-  r.p_my = pe_d;
-  r.p_yy = pe_c;
-  r.em_m = 1.0f - pe_q;
-  r.em_x = __fdiv_rn(pe_q, 3.0f);
-  r.rmask = read_code_mask(a.rs[at]);
-  return r;
+  return expand_quals_row<FE>(a.q[at], a.iq[at], a.dq[at], a.cq[at], a.rs[at],
+                              a.ph2pr, a.m2m);
 }
 
 template <int FE, typename Args>

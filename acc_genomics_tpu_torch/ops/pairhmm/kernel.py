@@ -36,6 +36,7 @@ MAX_COLS = 1024  # haplotype staged in shared memory
 LAUNCHES: collections.Counter = collections.Counter()
 
 _SOURCES = ("ops/pairhmm/csrc/pairhmm_forward.cu",)
+_HEADERS = ("ops/pairhmm/csrc/pairhmm_common.cuh",)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -43,7 +44,7 @@ _I = ctypes.c_int
 def build_kernels() -> build.BuiltLibrary:
     """Build (at first use) and load the kernel library, with the C
     entry points' argument types set."""
-    built = build.load_library("pairhmm_forward", _SOURCES)
+    built = build.load_library("pairhmm_forward", _SOURCES, _HEADERS)
     lib = built.lib
     if lib.pairhmm_forward_coef.argtypes is None:
         lib.pairhmm_forward_coef.argtypes = [_P] * 11 + [_I, _I, _I, _P, _P]

@@ -57,7 +57,7 @@ def build_kernels() -> Dict[str, build.BuiltLibrary]:
     built = build.load_library("smem_collect", _SOURCES)
     fn = built.lib.smem_collect
     if fn.argtypes is None:
-        fn.argtypes = [_P] + [_I] * 6 + [_P] * 2 + [_I] * 8 + [_P] * 5
+        fn.argtypes = [_P] + [_I] * 6 + [_P] * 2 + [_I] * 9 + [_P] * 6
         fn.restype = ctypes.c_int
     return {"smem_collect": built}
 
@@ -441,15 +441,24 @@ def smem_collect(index: DeviceIndex, seq, lens,
     check_tensor(lens, "lens", torch.int32, (bsz,))
     check_tensor(index.tbl, "tbl", torch.int32, (index.tbl.shape[0], 8))
     chain_cap, mem_cap = caps(params)
-    mem = torch.zeros((5, mem_cap, bsz), dtype=torch.int32, device=dev)
-    counts = torch.empty((3, bsz), dtype=torch.int32, device=dev)
+    # one zeroed buffer: the intervals (rows past a read's count stay 0),
+    # the counts, and the kernel's read queue
+    n_mem = 5 * mem_cap * bsz
+    buf = torch.zeros(n_mem + 3 * bsz + 1, dtype=torch.int32, device=dev)
+    mem = buf[:n_mem].view(5, mem_cap, bsz)
+    counts = buf[n_mem:n_mem + 3 * bsz].view(3, bsz)
+    # the kernel's layout: read-major rows of a multiple of 16 bytes
+    stride = -(-L // 16) * 16
+    rows = seq.new_full((bsz, stride), 4)
+    rows[:, :L] = seq.t()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = build_kernels()["smem_collect"].lib.smem_collect(
-            _ptr(index.tbl), index.primary, *index.l2_values, _ptr(seq), _ptr(lens), L, bsz,
+            _ptr(index.tbl), index.primary, *index.l2_values, _ptr(rows), _ptr(lens), L,
+            stride, bsz,
             params.min_seed_len, params.split_len, params.split_width,
             params.max_mem_intv, chain_cap, mem_cap, _ptr(mem), _ptr(counts[0]),
-            _ptr(counts[1]), _ptr(counts[2]), ctypes.c_void_p(stream))
+            _ptr(counts[1]), _ptr(counts[2]), _ptr(buf[-1:]), ctypes.c_void_p(stream))
         LAUNCHES["smem_collect"] += 1
     if err != 0:
         raise RuntimeError(f"smem_collect: CUDA launch failed with error {err}")

@@ -19,18 +19,21 @@ version at the extension benchmark's shape and on three edge batches,
 drives ExtendEngine on 4096 seeds against the native host engine and the
 oracle (with its host fallback, degenerate seeds and the BWA-SW record
 fixture); builds a 100 Mbp FM-index, checks the SMEM kernel against its
-plain version on 65,536 reads of 101 bp, drives SmemEngine on them
-against the native host engine and the oracle (with its edges); then
-drives BwaMemSeeding on GenomicsEngine over 2048 reads against the same
-composition over the native host engines and the oracle chain; checks the
-fused seed-extension kernel bit for bit against its plain version on the
-seeds of BwaMemDevicePipeline, drives the pipeline on the same reads
-against BwaMemSeeding, and checks its edges.  Mesh: on a (1, 4) mesh of
-the one card, checks the band kernel against its plain version on two
-supersteps of the DP x SP pipeline, drives PairHMMEngine(mesh=...) on
-2,048 pairs whose haplotypes are all past 1024 columns against the
-native host engine and the oracle, holds SP against the DP kernel on
-pairs that fit, and checks the edges and GenomicsEngine(mesh=...).
+plain version on 65,536 reads of 101 bp (with the distribution of its
+extensions a read), drives SmemEngine on them against the native host
+engine and the oracle (with its edges); then drives BwaMemSeeding on
+GenomicsEngine over 2048 reads against the same composition over the
+native host engines and the oracle chain; checks the SMEM kernel and the
+fused seed-extension kernel bit for bit against their plain versions on
+BwaMemDevicePipeline's own launches, drives the pipeline on the same
+reads against BwaMemSeeding, and checks its edges.  Mesh: on a (1, 4)
+mesh of the one card, checks the band kernel against its plain version on
+the first and the middle superstep of the DP x SP pipeline (byte planes
+at C = 8, 16 and 32, fp32 planes at the engine's C) and times the
+pipeline at each C, drives PairHMMEngine(mesh=...) on 2,048 pairs whose
+haplotypes are all past 1024 columns against the native host engine and
+the oracle, holds SP against the DP kernel on pairs that fit, and checks
+the edges and GenomicsEngine(mesh=...).
 Any failed check raises, so the exit code is non-zero.  The last line of
 standard output is one JSON object naming the device; the line before it
 lists each kernel of the main paths with its launches, error, times and
@@ -340,10 +343,10 @@ def sw_kernels_vs_plain(chunks, card: str):
     fills = [SK.sw_fill(*c, 0) for c in chunks]
     fill_ms = cuda_time_ms(lambda: [SK.sw_fill(*c, 0) for c in chunks])
     fill_plain_ms = cuda_time_ms(lambda: [SK.sw_fill_plain(*c, 0) for c in chunks],
-                                 repeats=3, warm=False)
+                                 repeats=1, warm=False)
     walk = lambda fn: [fn(*f, c[2], c[3], 0) for f, c in zip(fills, chunks)]
     walk_ms = cuda_time_ms(lambda: walk(SK.sw_walk))
-    walk_plain_ms = cuda_time_ms(lambda: walk(SK.sw_walk_plain), repeats=3, warm=False)
+    walk_plain_ms = cuda_time_ms(lambda: walk(SK.sw_walk_plain), repeats=1, warm=False)
     walk_bound = bound(edge + 2 * steps + len(chunks) * walk_out, 0, INT32_OPS_PER_S)
     say(f"sw bench kernels, {cells} cells: sw_fill kernel_ms={fill_ms:.4f} "
         f"plain_ms={fill_plain_ms:.4f} kernel_gcups={cells / (fill_ms * 1e-3) / 1e9:.3f} "
@@ -654,7 +657,7 @@ def extend_phases(card: str, dev) -> dict:
     q, t, ql, tl, h0 = bench
     k_ms = cuda_time_ms(lambda: EK.sw_extend_rows(q, t, ql, tl, h0, ql, ql))
     p_ms = cuda_time_ms(lambda: EK.sw_extend_plain(q, t, ql, tl, h0, ql, ql),
-                        repeats=3, warm=False)
+                        repeats=1, warm=False)
     say(f"extend bench batch: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
         f"kernel_seeds_per_s={q.shape[1] / (k_ms * 1e-3):.1f} bound {ext_bound} [{card}]")
 
@@ -771,6 +774,20 @@ def oracle_hits(fm, read, max_occ, flank, smem_params, ext_params):
     return out
 
 
+def probe_spread(name: str, probes) -> None:
+    """The distribution of FM-index extensions a read, and for warps of 32
+    consecutive reads (one thread a read) the ratio of their mean to their
+    longest read's: what a warp that runs as long as its longest read
+    does of useful work."""
+    pr = probes.long().cpu().numpy()
+    q = np.percentile(pr, [50, 90, 99])
+    w = pr[: len(pr) // 32 * 32].reshape(-1, 32)
+    ratio = w.mean(1) / np.maximum(w.max(1), 1) if len(w) else np.zeros(1)
+    say(f"{name}: probes a read min {pr.min()} p50 {q[0]:.0f} p90 {q[1]:.0f} p99 {q[2]:.0f} "
+        f"max {pr.max()} mean {pr.mean():.1f}; warps of 32 consecutive reads, mean/max: "
+        f"median {np.median(ratio):.3f} min {ratio.min():.3f} mean {ratio.mean():.3f}")
+
+
 def smem_bwa_phases(card: str, dev, extend_entry: dict) -> dict:
     """Phases 12-14 over one 100 Mbp index: the SMEM kernel against its
     plain version, SmemEngine on the card and its edges, BwaMemSeeding on
@@ -823,6 +840,7 @@ def smem_bwa_phases(card: str, dev, extend_entry: dict) -> dict:
         f"flags, probes; {n_iv} intervals, {n_flag} flagged, "
         f"{int(got[3].long().sum())} probes (max {int(got[3].max())} a read)")
     check(err == 0, "SMEM kernel vs plain: not exact")
+    probe_spread("smem bench batch", got[3])
     k_ms = cuda_time_ms(lambda: MK.smem_collect(idx, seq_d, lens_d, params))
     say(f"smem bench batch: kernel_ms={k_ms:.4f} plain_ms={plain_ms:.4f} (one call, "
         f"host clock) kernel_reads_per_s={len(reads) / (k_ms * 1e-3):.1f} bound "
@@ -928,6 +946,7 @@ def pipeline_phase(card: str, engines, fm, genome, bwa_reads, seeding_hits,
     SMEM launches to ``smem_entry``; returns the fused kernel's entry."""
     import torch
 
+    import acc_genomics_tpu_torch.engine.smem_engine as smem_module
     import acc_genomics_tpu_torch.models.bwa_mem as bwa_module
     from acc_genomics_tpu_torch.config import SmemConfig
     from acc_genomics_tpu_torch.engine.smem_engine import SmemEngine
@@ -942,9 +961,30 @@ def pipeline_phase(card: str, engines, fm, genome, bwa_reads, seeding_hits,
         f"({pipe.text_dev.numel()} uint8) on the card in {time.perf_counter() - t0:.2f} s")
 
     # -- 14. fused kernel vs plain, on the pipeline's own seeds -------------------
-    calls = []
-    with capture_calls(bwa_module, "extend_seeds_fused", calls):
+    calls, smem_calls = [], []
+    with capture_calls(bwa_module, "extend_seeds_fused", calls), \
+            capture_calls(smem_module, "smem_collect", smem_calls):
         hits0 = pipe.map_reads_arrays(bwa_reads)[0]
+
+    # -- 14. the SMEM kernel on the pipeline's own reads ------------------------
+    check(len(smem_calls) == 1, f"pipeline SMEM launches {len(smem_calls)}")
+    s_args, s_kw = smem_calls[0]
+    got = MK.smem_collect(*s_args, **s_kw)
+    t0 = time.perf_counter()
+    want = MK.smem_collect_plain(*s_args, **s_kw)
+    torch.cuda.synchronize()
+    s_plain_ms = (time.perf_counter() - t0) * 1e3
+    s_err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+    say(f"smem kernel vs plain, the pipeline's {got[1].numel()} reads: max_abs_err={s_err} "
+        f"over mem, counts, flags, probes; {int(got[1].sum())} intervals, "
+        f"{int(got[2].sum())} flagged")
+    check(s_err == 0, "SMEM kernel vs plain on the pipeline's reads: not exact")
+    probe_spread("smem pipeline batch", got[3])
+    s_ms = cuda_time_ms(lambda: MK.smem_collect(*s_args, **s_kw))
+    say(f"smem pipeline batch: kernel_ms={s_ms:.4f} plain_ms={s_plain_ms:.4f} (one call, host "
+        f"clock) [{card}]")
+    del got, want, smem_calls
+
     args, kw = calls[0]
     got = EK.extend_seeds_fused(*args, **kw)
     want, cells = EK.extend_seeds_fused_plain(*args, **kw, count_cells=True)
@@ -957,7 +997,7 @@ def pipeline_phase(card: str, engines, fm, genome, bwa_reads, seeding_hits,
     check(n_seeds > 0 and err == 0, "fused kernel vs plain: not bit-exact")
     check(np.array_equal(hits0, got.cpu().numpy()), "fused kernel: repeated launch differs")
     k_ms = cuda_time_ms(lambda: EK.extend_seeds_fused(*args, **kw))
-    p_ms = cuda_time_ms(lambda: EK.extend_seeds_fused_plain(*args, **kw), repeats=3,
+    p_ms = cuda_time_ms(lambda: EK.extend_seeds_fused_plain(*args, **kw), repeats=1,
                         warm=False)
     sa, text, _, rlens, rows, qbeg, slen, readid, flank = args[:9]
     # bytes the step must move: each seed's SA entry, its query and target
@@ -998,6 +1038,10 @@ def pipeline_phase(card: str, engines, fm, genome, bwa_reads, seeding_hits,
         f"(n={HC_REPEATS}); anatomy per call {anatomy}; launches {launches} [{card}]")
     check(launches.get("sw_extend_fused", 0) == HC_REPEATS
           and launches.get("smem_collect", 0) > 0, f"pipeline launches {launches}")
+    say(f"smem kernel share of smem_s: {s_ms:.4f} ms of {anatomy['smem_s'] * 1e3:.4f} ms a "
+        f"call ({s_ms / (anatomy['smem_s'] * 1e3):.3f}) [{card}]")
+    smem_entry["pipeline_ms"] = s_ms
+    smem_entry["pipeline_plain_ms"] = s_plain_ms
     check(all(np.array_equal(r[0], hits0) and r[3] == results[0][3] for r in results),
           "repeated pipeline calls differ")
     smem_entry["launches"] += launches.get("smem_collect", 0)
@@ -1027,6 +1071,49 @@ def pipeline_phase(card: str, engines, fm, genome, bwa_reads, seeding_hits,
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **fused_bound}
 
 
+def band_vs_plain(args, name: str, ic: float):
+    """One captured superstep through the band kernel and through its plain
+    version, each on its own copy of the pipeline state; every value the
+    superstep writes (the active slots' bottom rows, their right-edge rows,
+    the last chunk's results) within RAW_RTOL.  Returns the largest
+    absolute error in probability units (over the initial constant) and
+    the plain version's time (ms, one call, CUDA events)."""
+    import torch
+
+    from acc_genomics_tpu_torch.ops.pairhmm import band_kernel as BK
+
+    front, planes, tables, hap, slots, tops, edges, res, t, a, n, C, n_chunks = args
+    states = [[x.clone() for x in (tops, edges, res)] for _ in range(2)]
+    BK.pairhmm_band_superstep(front, planes, tables, hap, slots, *states[0], t, a, n, C,
+                              n_chunks)
+    plain_ms = cuda_time_ms(lambda: BK.pairhmm_band_superstep_plain(
+        front, planes, tables, hap, slots, *states[1], t, a, n, C, n_chunks),
+        repeats=1, warm=False)
+    par, worst = t % 2, 0.0
+    shard = slots[a:a + n, 0].tolist()
+    regions = [("bottom rows", lambda s: s[0][1 - par, :, a:a + n])]
+    for i, k in enumerate(shard):
+        r0 = (t - k) * C
+        regions.append((f"right edge, slot {a + i}",
+                        lambda s, i=i, r0=r0: s[1][:, a + i, :, r0 + 1:r0 + C + 1]))
+        if t - k == n_chunks - 1:
+            regions.append((f"result, slot {a + i}", lambda s, i=i: s[2][a + i]))
+    for what, cut in regions:
+        g, w = cut(states[0]).double(), cut(states[1]).double()
+        diff = (g - w).abs()
+        off = int((diff > RAW_RTOL * w.abs() + RAW_ATOL).sum())
+        check(off == 0 and bool(torch.isfinite(g).all()),
+              f"band kernel vs plain, {name} superstep, {what}: {off} values off")
+        worst = max(worst, float(diff.max()) / ic)
+    if name.startswith("middle"):  # a chunk whose boundary streams carry mass
+        check(bool(states[1][0][1 - par, :, a:a + n].any()),
+              f"middle superstep ({name}): a bottom row all zero")
+    say(f"pairhmm_band_superstep vs plain, {name} ({front}): {n} slots x {tops.shape[3]} lanes "
+        f"x hc {tops.shape[4]}; every value within rtol {RAW_RTOL}; max_abs_err {worst:.3e} "
+        f"(probability units)")
+    return worst, plain_ms
+
+
 def mesh_phase(card: str, dev) -> dict:
     """Phase 15 on a (1, 4) mesh of the card: the band kernel against its
     plain version on the first and a middle superstep of the main path's
@@ -1053,7 +1140,11 @@ def mesh_phase(card: str, dev) -> dict:
     from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext
     from acc_genomics_tpu_torch.ops.pairhmm.convert import batch_to_torch
     from acc_genomics_tpu_torch.ops.pairhmm.pack import pack_pairhmm_batch
-    from acc_genomics_tpu_torch.parallel import make_mesh, pairhmm_forward_dpsp
+    from acc_genomics_tpu_torch.parallel import (
+        make_mesh,
+        pairhmm_forward_dpsp,
+        pairhmm_forward_dpsp_from_quals,
+    )
 
     ctx = PairHMMContext(np.float32)
     mesh = make_mesh((1, 4), devices=[dev] * 4)
@@ -1072,71 +1163,72 @@ def mesh_phase(card: str, dev) -> dict:
         f"mesh {mesh}")
     check(min(hl) > 1024 and max(hl) <= 4 * 1024, "every haplotype past 1024, within 4096")
 
-    # -- 15a. band kernel vs plain on two supersteps, C = 8 and the engine's -------
+    # -- 15a. band kernel vs plain on two supersteps, at each C -----------------
     eng = PairHMMEngine(device=dev, mesh=mesh)
-    C = engine_module.SP_CHUNK_ROWS
     rows = eng.config.read_buckets[-1]
-    n_steps = rows // C + mesh.shape["seq"] - 1
-    band_calls, sp_calls = [], []
-    with capture_calls(sharded_module, "pairhmm_band_chunk", band_calls,
-                       keep=(0, n_steps // 2)), \
-            capture_calls(engine_module, "pairhmm_forward_dpsp", sp_calls):
+    C = engine_module.sp_chunk_rows(rows)
+    n_seq = mesh.shape["seq"]
+    n_steps = rows // C + n_seq - 1
+    sp_calls = []
+    with capture_calls(engine_module, "pairhmm_forward_dpsp_from_quals", sp_calls):
         first = eng.compute_matrix_flat(*f)  # warm-up
     torch.cuda.synchronize()
-    sp_args = sp_calls[0][0][1:]  # after the mesh
-    hc = (sp_args[9].shape[0] - rows) // mesh.shape["seq"]
-    check(hc == 1024, f"SP slab {hc} columns")
-    c8_calls = []
-    with capture_calls(sharded_module, "pairhmm_band_chunk", c8_calls,
-                       keep=(0, (rows // 8 + mesh.shape["seq"] - 1) // 2)):
-        res8 = pairhmm_forward_dpsp(mesh, *sp_args, C=8)
-    err = 0.0
-    for (args, _), name in zip(c8_calls + band_calls, ("first, C 8", "middle, C 8",
-                                                       f"first, C {C}", f"middle, C {C}")):
-        got = BK.pairhmm_band_chunk(*args)
-        want = BK.pairhmm_band_chunk_plain(*args)
-        torch.cuda.synchronize()
-        worst = 0.0
-        for out, g, w in zip(("bot_m", "bot_x", "bot_s", "redge_m", "redge_y", "redge_s"),
-                             got, want):
-            g64, w64 = g.double(), w.double()
-            diff = (g64 - w64).abs()
-            off = int((diff > RAW_RTOL * w64.abs() + RAW_ATOL).sum())
-            check(off == 0 and bool(torch.isfinite(g).all()),
-                  f"band kernel vs plain, {name} superstep, {out}: {off} values off")
-            worst = max(worst, float(diff.max()) / float(ctx.initial_constant))
-        if name.startswith("middle"):  # a chunk whose boundary streams carry mass
-            check(all(bool(args[k].any()) for k in (3, 4, 6, 8)),
-                  f"middle superstep ({name}): a top or edge stream all zero")
-        err = max(err, worst)
-        say(f"pairhmm_band_chunk vs plain, {name}: slots x C x hc x lanes "
-            f"{(args[0].shape[0], args[0].shape[2], args[2].shape[1], args[0].shape[3])}; "
-            f"every value within rtol {RAW_RTOL}; max_abs_err {worst:.3e} (probability units)")
-    timed = {}
-    for name, (args, _) in (("C 8", c8_calls[1]), (f"C {C}", band_calls[1])):
-        slots, c_rows, _, lanes = args[0].shape
-        k_ms = cuda_time_ms(lambda: BK.pairhmm_band_chunk(*args))
-        p_ms = cuda_time_ms(lambda: BK.pairhmm_band_chunk_plain(*args), repeats=1, warm=False)
-        band_bound = bound(*BK.band_bound_terms(c_rows, hc, slots * lanes), FP32_OPS_PER_S)
-        timed[name] = (k_ms, p_ms, band_bound)
-        say(f"pairhmm_band_chunk, middle superstep, {name} ({slots} slots x {lanes} lanes, "
-            f"hc {hc}): kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound {band_bound} [{card}]")
-    k_ms, p_ms, band_bound = timed[f"C {C}"]
-    del band_calls, c8_calls
+    sp_args, sp_kw = sp_calls[0][0][1:], dict(sp_calls[0][1])  # after the mesh
+    hc = (sp_args[5].shape[0] - rows) // n_seq
+    check(hc == 1024 and sp_kw["C"] == C, f"SP slab {hc} columns, C {sp_kw['C']}")
+    lanes = sp_args[0].shape[1]
+    err, timed, spans, res_by_c = 0.0, {}, {}, {}
+    for c in BK.CHUNK_ROWS:
+        kw = dict(sp_kw, C=c)
+        mid = (rows // c + n_seq - 1) // 2
+        calls = []
+        with capture_calls(sharded_module, "pairhmm_band_superstep", calls, keep=(0, mid)):
+            res_by_c[c] = pairhmm_forward_dpsp_from_quals(mesh, *sp_args, **kw)
+        for (args, _), name in zip(calls, (f"first, C {c}", f"middle, C {c}")):
+            worst, p_ms = band_vs_plain(args, name, float(ctx.initial_constant))
+            err = max(err, worst)
+        args = calls[1][0]
+        k_ms = cuda_time_ms(lambda: BK.pairhmm_band_superstep(*args))
+        n_act = args[10]
+        band_bound = bound(*BK.band_bound_terms(c, hc, n_act * lanes), FP32_OPS_PER_S)
+        front_bound = bound(BK.band_quals_bytes(c, hc, n_act * lanes),
+                            BK.band_bound_terms(c, hc, n_act * lanes)[1], FP32_OPS_PER_S)
+        timed[c] = (k_ms, p_ms, band_bound, front_bound)
+        say(f"pairhmm_band_superstep ({sp_kw['expand']}), middle superstep, C {c} ({n_act} "
+            f"slots x {lanes} lanes, hc {hc}): kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound "
+            f"(fp32 yardstick) {band_bound}; byte front end's own bytes {front_bound} [{card}]")
+        spans[c] = cuda_time_ms(lambda: pairhmm_forward_dpsp_from_quals(mesh, *sp_args, **kw),
+                                repeats=5)
+        check(torch.equal(res_by_c[c], res_by_c[BK.CHUNK_ROWS[0]]),
+              f"C {c} changed a bit of the SP result")
+    say(f"pairhmm_forward_dpsp_from_quals on the main path's pack ({lanes} lanes, {rows} rows, "
+        f"{sp_args[5].shape[0] - rows} cols): CUDA-event span ms by C {spans}; results equal "
+        f"bit for bit; the engine runs C {C} [{card}]")
+    k_ms, p_ms, band_bound, front_bound = timed[C]
 
-    spans = {}
-    for c in (8, 16, 32):
-        res = pairhmm_forward_dpsp(mesh, *sp_args, C=c)
-        check(torch.equal(res, res8), f"C {c} changed a bit of the SP result")
-        spans[c] = cuda_time_ms(lambda: pairhmm_forward_dpsp(mesh, *sp_args, C=c), repeats=5)
-    say(f"pairhmm_forward_dpsp on the main path's pack ({sp_args[0].shape[1]} lanes, "
-        f"{rows} rows, {sp_args[9].shape[0] - rows} cols): CUDA-event span ms by C {spans}; "
-        f"results equal bit for bit; the engine runs C {C} [{card}]")
-    del sp_calls, sp_args
+    # the fp32 front end on the same pairs (pack.py's coefficient planes)
+    t0 = time.perf_counter()
+    fp32 = batch_to_torch(pack_pairhmm_batch(tcs, rows=rows, cols=sp_args[5].shape[0] - rows,
+                                             dtype=np.float32), dev)
+    pack_s = time.perf_counter() - t0
+    calls = []
+    with capture_calls(sharded_module, "pairhmm_band_superstep", calls,
+                       keep=(0, n_steps // 2)):
+        res32 = pairhmm_forward_dpsp(mesh, *fp32, C=C)
+    for (args, _), name in zip(calls, (f"first, C {C}, fp32", f"middle, C {C}, fp32")):
+        err = max(err, band_vs_plain(args, name, float(ctx.initial_constant))[0])
+    got8, want32 = res_by_c[C][:n_pairs].double(), res32[:n_pairs].double()
+    rel = float(((got8 - want32).abs() / want32.abs()).max())
+    span32 = cuda_time_ms(lambda: pairhmm_forward_dpsp(mesh, *fp32, C=C), repeats=5)
+    say(f"fp32 front end: pack {pack_s * 1e3:.1f} ms ({nbytes(*fp32)} bytes); pipeline span "
+        f"{span32:.4f} ms at C {C}; byte planes vs fp32 pack max rel {rel:.3e} [{card}]")
+    check(rel < RTOL_HOST, f"byte-plane SP vs fp32 SP {rel}")
+    del fp32, calls, sp_calls, sp_args, res_by_c
 
     # -- 15b. PairHMMEngine(mesh=...) main path -----------------------------------
     eng.reset_anatomy()
     s0 = dict(eng.stats)
+    h2d0 = eng.stats.get("h2d_bytes", 0)
     K.LAUNCHES.clear()
     BK.LAUNCHES.clear()
     times, liks = [], []
@@ -1146,6 +1238,7 @@ def mesh_phase(card: str, dev) -> dict:
         times.append(time.perf_counter() - t0)
     launches = dict(BK.LAUNCHES)
     dp_launches = dict(K.LAUNCHES)
+    h2d = (eng.stats.get("h2d_bytes", 0) - h2d0) // HC_REPEATS
     med = statistics.median(times)
     anatomy = {k: round(v / HC_REPEATS, 6) for k, v in eng.anatomy.items()}
     sp_pairs = eng.stats["sp_pairs"] - s0["sp_pairs"]
@@ -1154,10 +1247,11 @@ def mesh_phase(card: str, dev) -> dict:
         f"gcups median={cells / med / 1e9:.3f} min={cells / max(times) / 1e9:.3f} "
         f"max={cells / min(times) / 1e9:.3f}; anatomy s per call {anatomy}; launches "
         f"{launches} {dp_launches}; sp_pairs {sp_pairs} host_fallback "
-        f"{eng.stats.get('host_fallback', 0)} [{card}]")
+        f"{eng.stats.get('host_fallback', 0)}; C {eng.stats['sp_chunk_rows']}; h2d bytes a "
+        f"call {h2d} [{card}]")
     check(sp_pairs == HC_REPEATS * n_pairs and eng.stats.get("host_fallback", 0) == 0,
           "every pair on the SP route, none on the host")
-    check(launches.get("pairhmm_band_chunk") == HC_REPEATS * n_steps and not dp_launches,
+    check(launches == {"pairhmm_band_superstep": HC_REPEATS * n_steps} and not dp_launches,
           f"band launches {launches}, other launches {dp_launches}")
     lik = liks[0]
     check(lik.shape == (len(reads), len(haps)) and np.isfinite(lik).all()
@@ -1252,9 +1346,10 @@ def mesh_phase(card: str, dev) -> dict:
         f"{facades[0].pairhmm.stats.get('sp_pairs', 0)}) within {RTOL_HOST} of the native host; SW "
         f"{len(alts)} pairs, extension {len(seeds)} seeds, SMEM {len(sreads)} reads equal to "
         f"the facade without a mesh")
-    return {"name": "pairhmm_band_chunk", "route": "cuda", "source": BAND_SOURCE,
-            "replaces": BAND_TPU, "launches": launches.get("pairhmm_band_chunk", 0),
-            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **band_bound}
+    return {"name": "pairhmm_band_superstep", "route": "cuda", "source": BAND_SOURCE,
+            "replaces": BAND_TPU, "launches": launches.get("pairhmm_band_superstep", 0),
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **band_bound,
+            "front_bound_ms": front_bound["bound_ms"], "front_bound_by": front_bound["bound_by"]}
 
 
 def main() -> int:
@@ -1374,7 +1469,7 @@ def main() -> int:
         kernel_vs_plain(f"bench {name}", got, want, log10_ic)
         check(np.all(got[inert] == 0.0), f"bench {name}: inert lanes not exactly 0")
         k_ms = cuda_time_ms(lambda: [kern(*a) for a in packs])
-        p_ms = cuda_time_ms(lambda: [plain(*a) for a in packs], repeats=3)
+        p_ms = cuda_time_ms(lambda: [plain(*a) for a in packs], repeats=1, warm=False)
         say(f"bench {name}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
             f"kernel_gcups={cells / (k_ms * 1e-3) / 1e9:.3f} [{card}]")
 

@@ -10,9 +10,10 @@ its plain PyTorch version in log space rtol 1e-5 (the kernel contracts
 multiply-adds into fmas and sums in another order); inert lanes exactly 0.
 The SW, extension and SMEM kernels are integer: bit-exact against their
 plain versions, and their engines exact against the native host engines.
-The band kernel against its plain version: every output within rtol 1e-5
-of its largest value; the SP route within 2e-4 of the native fp32 host
-engine and within 1e-5 of the DP kernel (another summation order).
+The band kernel against its plain version (both front ends): every value
+written within rtol 1e-5 of its largest value; the SP route within 2e-4
+of the native fp32 host engine and within 1e-5 of the DP kernel (another
+summation order).
 """
 
 import os
@@ -41,7 +42,7 @@ from acc_genomics_tpu_torch.engine.extend_engine import (
 )
 from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext
 from acc_genomics_tpu_torch.ops.pairhmm.pack import pack_pairhmm_batch, pack_pairhmm_quals
-from acc_genomics_tpu_torch.engine.pairhmm_engine import SP_CHUNK_ROWS, PairHMMEngine
+from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine, sp_chunk_rows
 from acc_genomics_tpu_torch.engine.smem_engine import SmemEngine
 from acc_genomics_tpu_torch.engine.sw_engine import SWEngine
 from acc_genomics_tpu_torch.models import BwaEngines, BwaMemDevicePipeline, BwaMemSeeding
@@ -282,17 +283,30 @@ def _smem_case(rng):
 
 
 @pytest.mark.gpu
-def test_cuda_smem_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("n_reads", [1, 33, 2048])
+def test_cuda_smem_kernel_matches_plain(cuda, n_reads):
+    """The persistent lockstep kernel bit for bit against its plain
+    version: 1, 33 and 2,048 reads (the last with a 30% N share on a
+    quarter of them), at the default caps, at caps that 24-row chains and
+    most reads bust (flag set, the same rows up to the stop), and at the
+    widest chains."""
     from acc_genomics_tpu_torch.ops.smem.reference import SmemParams
 
-    fm, reads = _smem_case(np.random.default_rng(6))
+    rng = np.random.default_rng(6)
+    fm, reads = _smem_case(rng)
+    reads = (reads * (n_reads // len(reads) + 1))[:n_reads]
+    if n_reads == 2048:
+        reads[:512] = [np.where(rng.random(len(r)) < 0.3, 4, r).astype(np.uint8)
+                       for r in reads[:512]]
     seq = np.full((128, len(reads)), 4, np.uint8)
     lens = np.array([len(r) for r in reads], np.int32)
     for k, r in enumerate(reads):
         seq[: len(r), k] = r
     idx = DeviceIndex.build(fm, cuda)
     seq_d, lens_d = torch.from_numpy(seq).to(cuda), torch.from_numpy(lens).to(cuda)
-    for params in (SmemParams(), SmemParams(curr_cap=3, mem_cap=4)):
+    flagged = 0
+    for params in (SmemParams(), SmemParams(curr_cap=3, mem_cap=4),
+                   SmemParams(curr_cap=32, mem_cap=64)):
         before = MK.LAUNCHES["smem_collect"]
         got = MK.smem_collect(idx, seq_d, lens_d, params)
         torch.cuda.synchronize()
@@ -300,7 +314,8 @@ def test_cuda_smem_kernel_matches_plain(cuda):
         want = MK.smem_collect_plain(idx, seq_d, lens_d, params)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
-    assert got[2].any()  # the tight caps flag reads
+        flagged += int(got[2].sum())
+    assert flagged > 0  # the tight caps flag reads
 
 
 @pytest.mark.gpu
@@ -357,34 +372,55 @@ def test_cuda_pipeline_matches_bwa_mem_seeding(cuda):
     assert got[-1] and got[500] == []  # the host route; the all-N read
 
 
+def _band_state(cuda, rng, C, front, bd, n_chunks=3, hc=96):
+    """A three-shard pipeline state of one data group, random non-zero
+    tops and edges, and its pack (byte planes or fp32 planes) on the card:
+    the superstep's arguments but t, first and n_active."""
+    rows, cols, lanes = n_chunks * C, 3 * hc, bd + 7  # the group sits at lane 7
+    tcs = gen_pairhmm_pairs(rng, lanes, max_read_len=rows - 1, max_hap_len=cols)
+    ctx = PairHMMContext(np.float32)
+    if front == "coef":
+        pack = pack_pairhmm_batch(tcs, rows=rows, cols=cols, pad_lanes=False)
+        planes = tuple(batch_to_torch(pack, cuda))
+        hap_ext, planes, tables = planes[9], planes[:9] + planes[10:], ()
+    else:
+        qp = pack_pairhmm_quals(tcs, rows=rows, cols=cols, pad_lanes=False)
+        q, i, d, c, rs, hap_ext, rslen, haplen = quals_to_torch(qp, cuda)
+        planes = (q, i, d, c, rs, rslen, haplen)
+        ph2pr, m2m, _ = context_tables(ctx, cuda)
+        tables = (ph2pr, m2m, float(ctx.initial_constant))
+    hap = hap_ext[:cols].t().contiguous().to(torch.uint8)
+    slots = torch.tensor([[0, 7, -1], [1, 7, 0], [2, 7, 1]], dtype=torch.int32, device=cuda)
+    state = [rng.uniform(0.1, 2.0, (2, 3, 3, bd, hc)), rng.uniform(0.1, 2.0, (3, 3, bd, rows + 1)),
+             np.zeros((3, bd))]
+    state = [torch.from_numpy(x.astype(np.float32)).to(cuda) for x in state]
+    return (front, planes, tables, hap, slots, *state)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("front", ["arith", "gather", "coef"])
 @pytest.mark.parametrize("C", [8, 16, 32])
-def test_cuda_band_kernel_matches_plain(cuda, C):
-    """Three slots of 300 lanes (not a multiple of a block's problems),
-    random non-zero streams, N and padded hap columns."""
+def test_cuda_band_kernel_matches_plain(cuda, C, front):
+    """The superstep kernel against its plain version: three shards of
+    300 lanes (not a multiple of a block's problems) and of 5 lanes (one
+    block, not filled), the first, a middle and the last superstep; every
+    value written within rtol 1e-5 of the largest value of its output."""
     rng = np.random.default_rng(C)
-    S, hc, B = 3, 96, 300
-    hap = (1 << rng.integers(0, 4, (S, hc, B))).astype(np.int32)
-    hap[rng.random(hap.shape) < 0.05] = 15
-    hap[:, hc - 10:, :50] = 16
-    args = [rng.uniform(0.05, 1.0, (S, 8, C, B)).astype(np.float32),
-            rng.integers(0, 5, (S, C, B)).astype(np.int32), hap]
-    args += [rng.uniform(0.1, 2.0, (S, hc + 1, B)).astype(np.float32) for _ in range(3)]
-    args += [rng.uniform(0.1, 2.0, (S, C + 1, B)).astype(np.float32) for _ in range(3)]
-    args = [torch.from_numpy(a).to(cuda) for a in args]
-    before = BK.LAUNCHES["pairhmm_band_chunk"]
-    got = BK.pairhmm_band_chunk(*args)
-    assert BK.LAUNCHES["pairhmm_band_chunk"] == before + 1
-    want = BK.pairhmm_band_chunk_plain(*args)
-    for g, w in zip(got, want):
-        scale = float(w.abs().max())
-        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * scale)
-    one = BK.pairhmm_band_chunk(*(a[1] for a in args))  # no slot axis
-    for g, w in zip(one, got):
-        assert torch.equal(g, w[1])
+    for bd in (300, 5):
+        base = _band_state(cuda, rng, C, front, bd)
+        for t, first, n in ((0, 0, 1), (2, 0, 3), (4, 2, 1)):
+            got = [x.clone() for x in base[5:]]
+            want = [x.clone() for x in base[5:]]
+            before = BK.LAUNCHES["pairhmm_band_superstep"]
+            BK.pairhmm_band_superstep(*base[:5], *got, t, first, n, C, 3)
+            torch.cuda.synchronize()
+            assert BK.LAUNCHES["pairhmm_band_superstep"] == before + 1
+            BK.pairhmm_band_superstep_plain(*base[:5], *want, t, first, n, C, 3)
+            for g, w in zip(got, want):
+                scale = float(w.abs().max())
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * scale)
     with pytest.raises(ValueError, match="chunk rows"):
-        BK.pairhmm_band_chunk(args[0][:, :, :4], args[1][:, :4], *args[2:6],
-                              *(e[:, :5] for e in args[6:]))
+        BK.pairhmm_band_superstep(*base[:5], *base[5:], 0, 0, 1, 12, 3)
 
 
 @pytest.mark.gpu
@@ -398,9 +434,10 @@ def test_cuda_sp_engine_matches_native_host(cuda):
     mesh = make_mesh((1, 4), devices=[cuda] * 4)
     eng = PairHMMEngine(device="cuda", mesh=mesh)
     eng.min_device_cells = 0
-    before = BK.LAUNCHES["pairhmm_band_chunk"]
+    before = BK.LAUNCHES["pairhmm_band_superstep"]
     got = eng.compute_matrix(reads, haps).reshape(-1)
-    assert BK.LAUNCHES["pairhmm_band_chunk"] - before == 256 // SP_CHUNK_ROWS + 4 - 1
+    assert eng.stats["sp_chunk_rows"] == sp_chunk_rows(256)
+    assert BK.LAUNCHES["pairhmm_band_superstep"] - before == 256 // sp_chunk_rows(256) + 4 - 1
     assert eng.stats["sp_pairs"] == 72 and eng.stats.get("host_fallback", 0) == 0
     tcs = [dict(hap=h, **r) for r in reads for h in haps]
     ctx = PairHMMContext(np.float32)
@@ -415,3 +452,25 @@ def test_cuda_sp_engine_matches_native_host(cuda):
     sp = pairhmm_forward_dpsp(mesh, *args).cpu().numpy()
     dp = pairhmm_forward_dp(make_mesh((2, 1), devices=[cuda] * 2), *args).cpu().numpy()
     np.testing.assert_allclose(sp, dp, rtol=1e-5, atol=float(np.finfo(np.float32).tiny))
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_engine_read_bucket_48_matches_native_host(cuda):
+    """read_buckets=(48,) on a (1, 2) mesh of the card: the SP route at
+    C = 16, within 2e-4 of the native fp32 host engine."""
+    rng = np.random.default_rng(4)
+    reads, haps = gen_pairhmm_input(rng, 16, 4, max_read_len=47, max_hap_len=250, derived=True)
+    cfg = PairHMMConfig(read_buckets=(48,), hap_buckets=(128,))
+    eng = PairHMMEngine(cfg, device="cuda", mesh=make_mesh((1, 2), devices=[cuda] * 2))
+    eng.min_device_cells = 0
+    before = BK.LAUNCHES["pairhmm_band_superstep"]
+    got = eng.compute_matrix(reads, haps).reshape(-1)
+    tcs = [dict(hap=h, **r) for r in reads for h in haps]
+    n_sp = sum(len(t["hap"]) > 128 for t in tcs)
+    assert n_sp > 0 and eng.stats["sp_pairs"] == n_sp and eng.stats["sp_chunk_rows"] == 16
+    assert BK.LAUNCHES["pairhmm_band_superstep"] - before == 48 // 16 + 2 - 1
+    ctx = PairHMMContext(np.float32)
+    raw = native.pairhmm_forward(tcs, np.float32)
+    assert (raw >= 1e-28).all()
+    want = np.log10(raw.astype(np.float64)) - np.float64(ctx.log10_initial_constant)
+    np.testing.assert_allclose(got, want, rtol=2e-4)

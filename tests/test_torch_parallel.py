@@ -6,8 +6,11 @@ those virtual devices.  Cases are tests/test_parallel.py's,
 tests/test_hybrid_dispatch.py's SP cases and tests/test_sharded_kernels.py's.
 Tolerances: the PairHMM forms rtol 1e-5 against the JAX forms and the
 single-device forward (SP sums a partial per shard, DP sums in column
-order); the engines' likelihoods rtol 1e-5 against the JAX engine and 5e-3
-against the fp64 oracle; the SMEM, extension and SW forms exact.
+order); the byte-plane SP form against the JAX form on the fp32 pack of
+the same pairs rtol 2e-4 with the arith expansion (the host packs its
+coefficients from float64 tables) and 1e-5 with gather (the host's own
+tables); the engines' likelihoods rtol 1e-5 against the JAX engine and
+5e-3 against the fp64 oracle; the SMEM, extension and SW forms exact.
 """
 
 import jax.numpy as jnp
@@ -41,9 +44,12 @@ from acc_genomics_tpu.parallel.sharded_kernels import (
 )
 from acc_genomics_tpu_torch.config import PairHMMConfig
 from acc_genomics_tpu_torch.engine.genomics_engine import GenomicsEngine
-from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
+from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine, sp_chunk_rows
 from acc_genomics_tpu_torch.ops.extend.kernel import KEYS, sw_extend_rows
 from acc_genomics_tpu_torch.ops.pairhmm import band_kernel as BK
+from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext as PortContext
+from acc_genomics_tpu_torch.ops.pairhmm.convert import context_tables, quals_to_torch
+from acc_genomics_tpu_torch.ops.pairhmm.pack import pack_pairhmm_quals
 from acc_genomics_tpu_torch.ops.smem.index import FMIndex
 from acc_genomics_tpu_torch.ops.smem.kernel import smem_collect
 from acc_genomics_tpu_torch.ops.smem.table import DeviceIndex
@@ -53,6 +59,7 @@ from acc_genomics_tpu_torch.parallel import (
     make_mesh,
     pairhmm_forward_dp,
     pairhmm_forward_dpsp,
+    pairhmm_forward_dpsp_from_quals,
 )
 from acc_genomics_tpu_torch.parallel.mesh import lane_groups
 from acc_genomics_tpu_torch.parallel.sharded_kernels import (
@@ -63,6 +70,7 @@ from acc_genomics_tpu_torch.parallel.sharded_kernels import (
 )
 
 CPU = torch.device("cpu")
+LANES_JAX = 128  # the JAX Pallas forms take lanes in blocks of 128
 FIELDS = ("x0", "x1", "s", "start", "end")
 
 
@@ -153,6 +161,63 @@ def test_dpsp_rejects_bad_geometry():
         pairhmm_forward_dpsp(_mesh((1, 3)), *args)
     with pytest.raises(ValueError, match="data shards"):
         pairhmm_forward_dpsp(_mesh((3, 1)), *args)
+
+
+@pytest.mark.parametrize("expand,rtol", [("arith", 2e-4), ("gather", 1e-5)])
+@pytest.mark.parametrize("case", ["2x4_128", "1x8_multichunk"])
+def test_dpsp_from_quals_matches_jax_band_pipeline(case, expand, rtol):
+    """The byte-plane SP form against the JAX Pallas pipeline on the fp32
+    pack of the same pairs (lanes padded alike)."""
+    shape, lanes, rows, cols = SP_CASES[case]
+    tcs = gen_pairhmm_pairs(np.random.default_rng(3), lanes, max_read_len=rows - 1,
+                            max_hap_len=cols)
+    qp = pack_pairhmm_quals(tcs, rows=rows, cols=cols, lane_multiple=LANES_JAX)
+    ph2pr, m2m, _ = context_tables(PortContext(np.float32), CPU)
+    ic = float(PortContext(np.float32).initial_constant)
+    got = pairhmm_forward_dpsp_from_quals(_mesh(shape), *quals_to_torch(qp, CPU), ph2pr, m2m,
+                                          ic, expand=expand).numpy()
+    pack = pack_pairhmm_batch(tcs, rows=rows, cols=cols, dtype=np.float32)
+    want = np.asarray(pairhmm_forward_dpsp_pallas(
+        jax_make_mesh(shape), *[jnp.asarray(v) for v in pack.arrays()], interpret=True))
+    assert got.shape == want.shape and (want[:lanes] > 0).all()
+    np.testing.assert_allclose(got, want, rtol=rtol)
+
+
+@pytest.mark.parametrize("rows", [16, 48])
+def test_dpsp_chunk_rows_follow_the_read_bucket(rows):
+    """A largest read bucket that 32 does not divide runs at the largest C
+    of CHUNK_ROWS that does."""
+    assert sp_chunk_rows(rows) == 16
+    assert sp_chunk_rows(64) == 32 and sp_chunk_rows(24) == 8
+    with pytest.raises(ValueError, match="chunk size"):
+        sp_chunk_rows(20)
+
+
+@pytest.mark.parametrize("rows", [16, 48])
+def test_engine_sp_route_with_read_buckets_32_does_not_divide(rows):
+    """The engine on a (1, 2) mesh with read_buckets=(16,) or (48,) (which
+    raised while the SP route ran a fixed C = 32) against the JAX engine
+    on the same 8 pairs, haplotypes of 100 past hap_buckets=(64,)."""
+    rng = np.random.default_rng(rows)
+    ln = rows - 3
+    tcs = []
+    for _ in range(8):
+        hap = rng.integers(0, 4, 100).astype(np.uint8)
+        tcs.append(dict(rs=hap[10:10 + ln].copy(),
+                        q=rng.integers(20, 40, ln).astype(np.uint8),
+                        i=np.full(ln, 40, np.uint8), d=np.full(ln, 40, np.uint8),
+                        c=np.full(ln, 10, np.uint8), hap=hap))
+    cfg = dict(read_buckets=(rows,), hap_buckets=(64,))
+    port = PairHMMEngine(PairHMMConfig(**cfg), device="cpu", mesh=_mesh((1, 2)))
+    port.min_device_cells = 0
+    got = port.compute_pairs(tcs)
+    assert port.stats["sp_pairs"] == 8 and port.stats["sp_chunk_rows"] == 16
+    jax_eng = JaxPairHMMEngine(JaxPairHMMConfig(**cfg), use_pallas=True,
+                               mesh=jax_make_mesh((1, 2)))
+    jax_eng._interpret = True
+    jax_eng.min_device_cells = 0
+    np.testing.assert_allclose(got, jax_eng.compute_pairs(tcs), rtol=1e-5)
+    np.testing.assert_allclose(got, _oracle(tcs), rtol=5e-3)
 
 
 def test_dp_matches_jax_dp():

@@ -51,7 +51,7 @@ class BuiltLibrary:
     path: str
     built: bool  # False when an earlier build with the same hash was loaded
     seconds: float  # compile time (0 when loaded from an earlier build)
-    log: str  # nvcc's output (register and shared-memory use per kernel)
+    log: str  # nvcc's output (registers, shared memory per kernel), kept in <library>.log
 
 
 _libs: Dict[str, BuiltLibrary] = {}
@@ -179,8 +179,13 @@ def load_library(name: str, sources: Sequence[str],
                     f"nvcc failed ({proc.returncode}) building {name}:\n"
                     f"{' '.join(cmd)}\n{log}"
                 )
+            with open(f"{out}.log", "w") as f:
+                f.write(log)
             os.replace(tmp, out)
             built = True
+        elif os.path.exists(f"{out}.log"):
+            with open(f"{out}.log") as f:
+                log = f.read()
         try:
             lib = ctypes.CDLL(out)
         except OSError as e:

@@ -19,7 +19,10 @@ text, and the clip resolution, as one (8, N) int32 tensor in
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches csrc/sw_extend.cu on the current stream and adds one to
 ``LAUNCHES["sw_extend"]`` or ``LAUNCHES["sw_extend_fused"]``.  Tensors on
-mixed devices raise.
+mixed devices raise.  ``sw_extend_rows`` runs one warp a task with the
+query across the lanes: up to ``REGISTER_QUERY`` columns in registers,
+past that in tiles of as many columns in shared memory, so its bucket
+holds at most ``MAX_QUERY`` query columns on the card.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ KEYS = ("score", "qle", "tle", "gtle", "gscore", "max_off", "w")
 FUSED_KEYS = ("qBeg", "qEndRel", "rBeg", "rEndRel", "score", "trueScore", "width",
               "pos")
 NEG = -(1 << 29)
+REGISTER_QUERY = 256  # query columns of a warp's registers (8 a lane)
+MAX_QUERY = 100 * REGISTER_QUERY  # a warp's tiles in 227 KB of shared memory
 
 # kernel launches per wrapper (CUDA tensors only); callers reset with clear()
 LAUNCHES: collections.Counter = collections.Counter()
@@ -208,7 +213,8 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 def sw_extend_rows(q_tm, t_tm, qlen, tlen, h0, max_ins, max_del,
                    params: ExtendParams = DEFAULT_EXTEND_PARAMS) -> torch.Tensor:
     """(7, B) int32 results in ``KEYS`` order (contract above).  On the
-    card the codes go to the kernel as uint8 (a cast when they are not)."""
+    card the codes go to the kernel as uint8 (a cast when they are not),
+    and Q may not pass ``MAX_QUERY``."""
     dev = same_device(q_tm, t_tm, qlen, tlen, h0, max_ins, max_del)
     if dev.type == "cpu":
         return sw_extend_plain(q_tm, t_tm, qlen, tlen, h0, max_ins, max_del, params)
@@ -220,6 +226,9 @@ def sw_extend_rows(q_tm, t_tm, qlen, tlen, h0, max_ins, max_del,
     tmax = t_tm.shape[0]
     if qmax == 0 or tmax == 0:
         raise ValueError(f"empty bucket {qmax} x {tmax}")
+    if qmax > MAX_QUERY:
+        raise ValueError(f"query bucket {qmax} > {MAX_QUERY} columns: a warp's tiles "
+                         "would not fit its shared memory")
     if q_tm.is_floating_point() or t_tm.is_floating_point():
         raise TypeError("base codes must be integers")
     q8 = q_tm.to(torch.uint8).contiguous()
@@ -227,7 +236,6 @@ def sw_extend_rows(q_tm, t_tm, qlen, tlen, h0, max_ins, max_del,
     for name, v in (("qlen", qlen), ("tlen", tlen), ("h0", h0),
                     ("max_ins", max_ins), ("max_del", max_del)):
         check_tensor(v, name, torch.int32, (bsz,))
-    eh = torch.empty((2, qmax + 2, bsz), dtype=torch.int32, device=dev)
     out = torch.empty((len(KEYS), bsz), dtype=torch.int32, device=dev)
     p = params
     with torch.cuda.device(dev):
@@ -235,7 +243,7 @@ def sw_extend_rows(q_tm, t_tm, qlen, tlen, h0, max_ins, max_del,
         err = build_kernels()["sw_extend"].lib.sw_extend(
             *(_ptr(a) for a in (q8, t8, qlen, tlen, h0, max_ins, max_del)),
             qmax, tmax, bsz, p.o_del, p.e_del, p.o_ins, p.e_ins, p.w,
-            p.sc_match, p.sc_mismatch, p.sc_ambig, _ptr(eh), _ptr(out),
+            p.sc_match, p.sc_mismatch, p.sc_ambig, None, _ptr(out),
             ctypes.c_void_p(stream))
         LAUNCHES["sw_extend"] += 1
     if err != 0:

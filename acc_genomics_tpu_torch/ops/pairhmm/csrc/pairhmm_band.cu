@@ -232,13 +232,8 @@ __global__ void __launch_bounds__(kThreads) pairhmm_band_kernel(BandArgs a) {
       left_m = e_lm;
       left_y = e_ly;
     }
-    const float distm =
-        hd >= kPadMask ? 0.0f : ((hd & cf.rmask) ? cf.em_m : cf.em_x);
-    // the contractions are written out, so that both instantiations of
-    // the step (and every C) round each cell alike
-    float m = __fmul_rn(distm, __fmaf_rn(cf.p_mm, dg_m, __fmul_rn(cf.p_gapm, dg_s)));
-    float x = __fmaf_rn(cf.p_mx, up_m, __fmul_rn(cf.p_xx, up_x));
-    float y = __fmaf_rn(cf.p_my, left_m, __fmul_rn(cf.p_yy, left_y));
+    const Cell cl = cell(cf, hd, dg_m, dg_s, up_m, up_x, left_m, left_y);
+    float m = cl.m, x = cl.x, y = cl.y;
     if (EDGE && (j < 0 || j >= hc)) m = x = y = 0.0f;  // outside the slab
     const float sxy = __fadd_rn(x, y);
     if (EDGE && j == hc - 1 && valid) {  // the right edge, into this slot's column

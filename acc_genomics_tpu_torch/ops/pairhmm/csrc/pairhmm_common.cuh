@@ -1,7 +1,8 @@
 // Shared by the PairHMM kernels (pairhmm_forward.cu, pairhmm_band.cu): the
-// one-hot match masks and the per-row expansion of quality bytes into the
+// one-hot match masks, the per-row expansion of quality bytes into the
 // eight transition and emission coefficients (the quals front end of
-// acc_genomics_tpu/ops/pairhmm/kernel.py `pairhmm_forward_pallas_from_quals`).
+// acc_genomics_tpu/ops/pairhmm/kernel.py `pairhmm_forward_pallas_from_quals`)
+// and the arithmetic of one cell.
 
 #pragma once
 
@@ -76,6 +77,29 @@ __device__ __forceinline__ RowCoef expand_quals_row(int q, int i, int d, int c,
   r.em_x = __fdiv_rn(pe_q, 3.0f);
   r.rmask = read_code_mask(code);
   return r;
+}
+
+// One cell (i, j) of the recurrence from the row's coefficients, the hap
+// column's match mask and the neighbours: the diagonal (M, S) of (i-1, j-1),
+// the cell above (M, X) and the cell to the left (M, Y):
+//     M = distm * (pMM M(i-1,j-1) + pGapM S(i-1,j-1))
+//     X = pMX M(i-1,j) + pXX X(i-1,j)
+//     Y = pMY M(i,j-1) + pYY Y(i,j-1)
+// The contractions are written out, so that every kernel and every
+// instantiation rounds each cell alike.
+struct Cell {
+  float m, x, y;
+};
+
+__device__ __forceinline__ Cell cell(const RowCoef& cf, uint32_t hd, float dg_m,
+                                     float dg_s, float up_m, float up_x,
+                                     float left_m, float left_y) {
+  const float distm =
+      hd >= kPadMask ? 0.0f : ((hd & cf.rmask) ? cf.em_m : cf.em_x);
+  return Cell{
+      __fmul_rn(distm, __fmaf_rn(cf.p_mm, dg_m, __fmul_rn(cf.p_gapm, dg_s))),
+      __fmaf_rn(cf.p_mx, up_m, __fmul_rn(cf.p_xx, up_x)),
+      __fmaf_rn(cf.p_my, left_m, __fmul_rn(cf.p_yy, left_y))};
 }
 
 }  // namespace pairhmm

@@ -11,8 +11,9 @@ each column ``b``.
 A wrapper given CPU tensors runs its plain PyTorch version; given CUDA
 tensors it launches the kernel of ``csrc/pairhmm_forward.cu`` on the
 current stream and adds one to ``LAUNCHES[<wrapper name>]``.  Tensors on
-mixed devices raise.  The kernel takes no per-block diagonal counts:
-every pair runs its own trip count.
+mixed devices raise.  The kernel runs a segment of 8, 16 or 32 lanes a
+pair (the smallest that holds R) and takes no per-block diagonal counts:
+every pair runs its own trip count, chunk by chunk of 32 rows.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ from acc_genomics_tpu_torch.device import check_tensor, same_device
 from acc_genomics_tpu_torch.utils.convert import BASE_N, HAP_PAD
 
 PAD_MASK = 16  # one-hot channel of padded hap columns (never matches)
-MAX_ROWS = 256  # one thread per read row, one block per pair
-MAX_COLS = 1024  # haplotype staged in shared memory
+MAX_ROWS = 256  # eight chunks of 32 rows a pair
+MAX_COLS = 1024  # a pair's hap columns in shared memory
 
 # kernel launches per wrapper (CUDA tensors only); callers reset with clear()
 LAUNCHES: collections.Counter = collections.Counter()
@@ -190,7 +191,7 @@ def _geometry(rs: torch.Tensor, hap_ext: torch.Tensor):
     rows, bsz = rs.shape
     cols = hap_ext.shape[0] - rows
     if rows > MAX_ROWS:
-        raise ValueError(f"rows {rows} > {MAX_ROWS}: one thread per row")
+        raise ValueError(f"rows {rows} > {MAX_ROWS}")
     if cols < 0 or cols > MAX_COLS:
         raise ValueError(f"hap columns {cols} outside [0, {MAX_COLS}]")
     return rows, cols, bsz

@@ -1,0 +1,263 @@
+"""The inputs the kernels are checked and timed at, shared by
+``chip_smoke.py``, ``tools/kernel_ab.py`` and the card's tests: the
+extension kernel's batches and edges, ExtendEngine's seeds, the PairHMM
+kernel's benchmark pairs, engine batches and edge packs, all made from
+numpy seeds, and a recorder of a wrapper's calls."""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from acc_genomics_tpu_torch.ops.extend.reference import ExtendParams
+
+EXTEND_SEEDS = 4096  # bench_extend_engine's seeds
+
+
+@contextlib.contextmanager
+def capture_calls(module, name: str, calls: list, keep=None):
+    """Record a copy of the arguments of every call of ``module.<name>``
+    while the block runs, or of the calls whose index is in ``keep`` (the
+    copies are taken on the caller's stream)."""
+    real = getattr(module, name)
+    seen = [0]
+
+    def recorder(*args, **kw):
+        if keep is None or seen[0] in keep:
+            calls.append(([a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args], dict(kw)))
+        seen[0] += 1
+        return real(*args, **kw)
+
+    setattr(module, name, recorder)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def _edge_tasks(rng, n, qmax, tmax, qlens):
+    """Query-like targets (95% identity, a 7-base insertion after 20 query
+    bases in every fourth, ambiguous bases in every fifth), qlen cycling
+    through ``qlens``, tlen up to tmax, h0 0-39 and 0 in every sixth."""
+    q = np.full((qmax, n), 4, np.uint8)
+    t = np.full((tmax, n), 4, np.uint8)
+    ql = np.resize(np.asarray(qlens, np.int32), n)
+    tl = rng.integers(1, tmax + 1, n).astype(np.int32)
+    for b in range(n):
+        qq = rng.integers(0, 4, ql[b]).astype(np.uint8)
+        tt = rng.integers(0, 4, tl[b]).astype(np.uint8)
+        src = qq if b % 4 else np.concatenate([qq[:20], rng.integers(0, 4, 7), qq[20:]])
+        m = min(len(src), tl[b])
+        tt[:m] = np.where(rng.random(m) < 0.95, src[:m], tt[:m])
+        if b % 5 == 0:
+            tt[::9] = 4
+        q[: ql[b], b] = qq
+        t[: tl[b], b] = tt
+    h0 = rng.integers(0, 40, n).astype(np.int32)
+    h0[::6] = 0
+    return q, t, ql, tl, h0
+
+
+def _gap_tasks(rng, n, qmax, tmax):
+    """Targets with a gap of 3-39 bases near query column 256, the first
+    shared-memory tile boundary: extra bases in the query (the in-row F
+    chain crosses the boundary) in even tasks, bases missing from it in
+    odd ones; 98% identity elsewhere, qlen and tlen up to 20 and 30 short
+    of the caps, h0 10-59."""
+    q = np.full((qmax, n), 4, np.uint8)
+    t = np.full((tmax, n), 4, np.uint8)
+    ql = np.zeros(n, np.int32)
+    tl = np.zeros(n, np.int32)
+    for b in range(n):
+        base = rng.integers(0, 4, tmax + qmax).astype(np.uint8)
+        at, gap = int(rng.integers(240, 262)), int(rng.integers(3, 40))
+        if b % 2 == 0:
+            qq = np.concatenate([base[:at], rng.integers(0, 4, gap), base[at:]])
+        else:
+            qq = np.concatenate([base[:at], base[at + gap:]])
+        qq = np.where(rng.random(len(qq)) < 0.98, qq, (qq + 1) % 4)[:qmax]
+        ql[b] = qmax - int(rng.integers(0, 20))
+        tl[b] = tmax - int(rng.integers(0, 30))
+        q[: ql[b], b] = qq[: ql[b]]
+        t[: tl[b], b] = base[: tl[b]]
+    return q, t, ql, tl, rng.integers(10, 60, n).astype(np.int32)
+
+
+def extend_batches(dev):
+    """The extension kernel's batches as dicts (name, q (Q, B), t (T, B),
+    qlen, tlen, h0, max_ins = max_del, params) on ``dev``.
+
+    bench_extend's (seed 0, 2048 tasks, Q 128, T 256, qlen 101, tlen 160,
+    h0 25); a batch where round 2 runs (an 80-base insertion after 20
+    query bases: the first round's best cell is 80 >= 3/4 of the band off
+    the diagonal; h0 100, enough to cross the 86-point gap); the bench
+    batch with 5% ambiguous bases; 512 tasks at the caps (qlen 256, tlen
+    1024).  Then the edges of the one-warp-a-task design, 512 tasks each:
+    qlen 0, 1, 31, 32 in a 32-column bucket (one column a lane), 31, 32,
+    33 in a 33-column bucket (two), 0, 1, 255, 256 at the 256 cap (eight);
+    band 8, where beg and end move every row and round 2 runs; max_ins =
+    max_del = 5, below the band; h0 0 everywhere.  Then the tiles past
+    256 query columns: qlen 255, 256, 257, 300 in a 300-column bucket with
+    band 300 (row 0 spans both tiles); gaps at column 256 in 520-column
+    buckets, band 100 and band 16 (round 2); 128 tasks at Q 1536 (six
+    tiles, past 48 KB of shared memory a block) and 8 at Q 25,600 (the
+    cap: one warp a block)."""
+    out = []
+
+    def on(name, q, t, ql, tl, h0, cap=None, params=ExtendParams()):
+        q, t, ql, tl, h0 = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                            for x in (q.astype(np.uint8), t.astype(np.uint8), ql, tl, h0))
+        mi = ql if cap is None else torch.clamp(ql, max=cap)
+        out.append(dict(name=name, q=q, t=t, qlen=ql, tlen=tl, h0=h0, max_ins=mi,
+                        params=params))
+
+    rng = np.random.default_rng(0)
+    bsz, qmax, tmax = 2048, 128, 256
+    q = rng.integers(0, 4, (qmax, bsz))
+    t = rng.integers(0, 4, (tmax, bsz))
+    t[:qmax] = np.where(rng.random((qmax, bsz)) < 0.95, q, t[:qmax])
+    full = lambda v: np.full(bsz, v, np.int32)
+    on("bench", q, t, full(101), full(160), full(25))
+
+    rng = np.random.default_rng(1)
+    q2 = rng.integers(0, 4, (256, bsz))
+    t2 = np.concatenate([q2[:20], rng.integers(0, 4, (80, bsz)), q2[20:], q2[:156]])
+    on("round2", q2, t2, full(200), full(280), full(100))
+
+    amb_q, amb_t = q.copy(), t.copy()
+    amb_q[rng.random(q.shape) < 0.05] = 4
+    amb_t[rng.random(t.shape) < 0.05] = 4
+    on("ambiguous", amb_q, amb_t, full(101), full(160), full(25))
+
+    n = 512
+    q4 = rng.integers(0, 4, (256, n))
+    t4 = rng.integers(0, 4, (1024, n))
+    t4[:256] = np.where(rng.random((256, n)) < 0.97, q4, t4[:256])
+    on("caps", q4, t4, np.full(n, 256, np.int32), np.full(n, 1024, np.int32),
+       np.full(n, 19, np.int32))
+
+    rng = np.random.default_rng(2)
+    on("qlen 0/1/31/32, Q 32", *_edge_tasks(rng, n, 32, 64, [0, 1, 31, 32]))
+    on("qlen 31/32/33, Q 33", *_edge_tasks(rng, n, 33, 64, [31, 32, 33]))
+    on("qlen 0/1/255/256, Q 256", *_edge_tasks(rng, n, 256, 320, [0, 1, 255, 256]))
+    on("band 8", *_edge_tasks(rng, n, 96, 128, [90, 64, 40]), params=ExtendParams(w=8))
+    on("max_ins 5 < band 8", *_edge_tasks(rng, n, 96, 128, [90, 64, 40]), cap=5,
+       params=ExtendParams(w=8))
+    qh, th, qlh, tlh, _ = _edge_tasks(rng, n, 128, 160, [101, 60])
+    on("h0 0", qh, th, qlh, tlh, np.zeros(n, np.int32))
+
+    rng = np.random.default_rng(3)
+    on("qlen 255/256/257/300, Q 300, band 300",
+       *_edge_tasks(rng, n, 300, 64, [255, 256, 257, 300]), params=ExtendParams(w=300))
+    on("gaps at column 256, Q 520", *_gap_tasks(rng, n, 520, 600))
+    on("gaps at column 256, Q 520, band 16", *_gap_tasks(rng, n, 520, 600),
+       params=ExtendParams(w=16))
+    on("Q 1536", *_edge_tasks(rng, 128, 1536, 1600, [1536, 1400, 1300, 257]))
+    on("Q 25600", *_edge_tasks(rng, 8, 25_600, 600, [25_600, 300, 20_000, 1]))
+    return out
+
+
+def extend_bench_seeds(n: int = EXTEND_SEEDS):
+    """bench_extend_engine's seeds: seed 0, a 20 kbp genome, reads of 101
+    with 4% errors, a planted 19-24 base seed, 150-base flanks."""
+    rng = np.random.default_rng(0)
+    genome = rng.integers(0, 4, 20_000).astype(np.uint8)
+    seeds = []
+    for _ in range(n):
+        pos = int(rng.integers(200, len(genome) - 400))
+        read = genome[pos: pos + 101].copy()
+        err = rng.random(101) < 0.04
+        read[err] = (read[err] + rng.integers(1, 4, err.sum())) % 4
+        qbeg = int(rng.integers(5, 101 - 30))
+        slen = int(rng.integers(19, 25))
+        read[qbeg: qbeg + slen] = genome[pos + qbeg: pos + qbeg + slen]
+        seeds.append(dict(read=read, rseq=genome[pos - 150: pos + 101 + 150],
+                          qbeg=qbeg, rbeg_off=150 + qbeg, len=slen))
+    return genome, seeds
+
+
+def flat_matrix_args(reads, haps):
+    """``PairHMMEngine.compute_matrix_flat`` arguments of reads x haps."""
+    cat = lambda key: np.concatenate([np.asarray(r[key], np.uint8) for r in reads])
+    return (
+        cat("rs"), cat("q"), cat("i"), cat("d"), cat("c"),
+        np.array([len(r["rs"]) for r in reads], np.int32),
+        np.concatenate([np.asarray(h, np.uint8) for h in haps]),
+        np.array([len(h) for h in haps], np.int32),
+    )
+
+
+def pairhmm_bench_groups(cols: int = 384, row_buckets=(64, 96, 128, 152)):
+    """bench.py's PairHMM kernel batch (seed 0, 8192 pairs, reads up to
+    150, haps up to 384) split into the row buckets: {rows: pairs}."""
+    from acc_genomics_tpu_torch.io.synth import gen_pairhmm_pairs
+
+    tcs = gen_pairhmm_pairs(np.random.default_rng(0), 8192, max_read_len=150,
+                            max_hap_len=cols)
+    groups = {b: [] for b in row_buckets}
+    for t in tcs:
+        for b in row_buckets:
+            if len(t["rs"]) < b:
+                groups[b].append(t)
+                break
+    return {b: g for b, g in groups.items() if g}
+
+
+def pairhmm_engine_batches(n: int = 1):
+    """The engine batches of chip_smoke.py's phase 4 (seed 1; each 1024
+    derived reads of up to 150 x 16 haps of up to 380) as (reads, haps)."""
+    from acc_genomics_tpu_torch.io.synth import gen_pairhmm_input
+
+    rng = np.random.default_rng(1)
+    return [gen_pairhmm_input(rng, 1024, 16, max_read_len=150, max_hap_len=380,
+                              derived=True) for _ in range(n)]
+
+
+def pairhmm_edge_packs(dev):
+    """The PairHMM kernel's edges (chip_smoke.py phase 3), as (label,
+    coefficient pack, byte-plane pack) on ``dev``: 256 derived pairs a
+    bucket of 1, 8, 9 (C = 8 and 16), 31, 32, 33, 34 (one and two chunks of
+    32) and 255 rows, every haplotype exactly the bucket's columns, 1 and
+    1024 among them.  Reads fill the rows but the absorbing one (a
+    byte-plane pack needs it); the coefficient pack runs every row.  A
+    one-row bucket holds no read: every lane is inert.  Then packs without
+    lane padding whose last warp is only partly filled: 1, 5 and 13 pairs
+    at rows 8 and 16 (C = 8 and 16: four and two segments a warp) and 3
+    pairs at rows 40 (C = 32, the block's last warps empty), haplotypes of
+    mixed lengths, the second pair of each pack inert (an empty read)."""
+    from acc_genomics_tpu_torch.io.synth import gen_pairhmm_input
+    from acc_genomics_tpu_torch.ops.pairhmm.convert import batch_to_torch, quals_to_torch
+    from acc_genomics_tpu_torch.ops.pairhmm.pack import pack_pairhmm_batch, pack_pairhmm_quals
+
+    rng = np.random.default_rng(4)
+    out = []
+    for rows, cols in ((1, 64), (8, 64), (9, 64), (31, 96), (32, 96), (33, 96), (34, 96),
+                       (255, 400), (40, 1), (151, 1024)):
+        reads, haps = gen_pairhmm_input(rng, 64, 4, max_read_len=max(rows - 1, 1),
+                                        max_hap_len=max(cols, 64), derived=True)
+        haps = [np.concatenate([h, rng.integers(0, 4, cols)])[:cols].astype(np.uint8)
+                for h in haps]  # every haplotype exactly `cols` long
+        tcs = [dict(hap=h, **r) for r in reads for h in haps]
+        if rows == 1:
+            for tc in tcs:
+                for k in ("rs", "q", "i", "d", "c"):
+                    tc[k] = np.asarray(tc[k])[:0]
+        out.append((f"rows {rows} cols {cols}",
+                    batch_to_torch(pack_pairhmm_batch(tcs, rows=rows, cols=cols), dev),
+                    quals_to_torch(pack_pairhmm_quals(tcs, rows=rows, cols=cols), dev)))
+    for rows, cols, n in ((8, 64, 1), (8, 64, 5), (8, 64, 13), (16, 96, 1), (16, 96, 5),
+                          (16, 96, 13), (40, 200, 3)):
+        reads, haps = gen_pairhmm_input(rng, n, 2, max_read_len=rows - 1, max_hap_len=cols,
+                                        derived=True)
+        tcs = [dict(hap=haps[k % 2], **r) for k, r in enumerate(reads)]
+        if n > 1:
+            for k in ("rs", "q", "i", "d", "c"):
+                tcs[1][k] = np.asarray(tcs[1][k])[:0]
+        kw = dict(rows=rows, cols=cols, pad_lanes=False)
+        out.append((f"rows {rows} cols {cols}, {n} pairs unpadded",
+                    batch_to_torch(pack_pairhmm_batch(tcs, **kw), dev),
+                    quals_to_torch(pack_pairhmm_quals(tcs, **kw), dev)))
+    return out

@@ -1,21 +1,36 @@
-"""Old against new: an earlier commit's band and SMEM kernels and this
-checkout's, timed in turns on one card at the same inputs.
+"""Old against new: an earlier commit's kernels and this checkout's, timed
+in turns on one card at the same inputs.
 
-    python -m acc_genomics_tpu_torch.tools.kernel_ab OLD_DIR
+    python -m acc_genomics_tpu_torch.tools.kernel_ab OLD_DIR [KERNEL ...]
 
-OLD_DIR holds the earlier commit's ``pairhmm_band.cu`` and
-``smem_collect.cu`` (``git show <commit>:<path>`` of
-``acc_genomics_tpu_torch/ops/{pairhmm,smem}/csrc/``), with the C
-interfaces of the kernels before their redesign (``pairhmm_band_chunk``
-on one chunk in the JAX layout; ``smem_collect`` without a read queue).
-They are built with the package's nvcc flags into its build directory.  The inputs are
-chip_smoke.py's: the band kernel on the middle superstep of phase 15's SP
-pipeline at C = 8 and 32 (the old kernel on the same chunks, cut by
-``superstep_chunks``), the SMEM kernel on phase 12's 65,536 reads and
-phase 14's 2,048 over the 100 Mbp index.  Each pair runs old, new, new,
-old (CUDA events, median of 7 each); the outputs must agree (SMEM bit for
-bit, band within rtol 1e-5).  The last line of standard output is one
-JSON object with every time.
+KERNEL is ``extend``, ``pairhmm`` or ``band_superstep`` (the default:
+all three).  OLD_DIR holds the earlier commit's sources of the kernels named
+(``git show <commit>:<path>`` of ``acc_genomics_tpu_torch/ops/.../csrc/``),
+built with the package's nvcc flags into its build directory:
+
+  extend   ``sw_extend.cu`` (the same C interface ``sw_extend``; the old
+           kernel reads its eh scratch): the bench batch of
+           ``tools/bench_shapes.py``, ExtendEngine's own launches on its
+           4096 bench seeds, and the batch of gaps at column 256 in a
+           520-column bucket (the new kernel's shared-memory tiles);
+  pairhmm  ``pairhmm_forward.cu`` and the ``pairhmm_common.cuh`` it
+           includes (the same C interface ``pairhmm_forward_quals``,
+           arith): bench.py's 8192 pairs in their four row buckets and the
+           buckets PairHMMEngine launches on chip_smoke.py's engine batch;
+  band_superstep  ``pairhmm_band.cu`` and its ``pairhmm_common.cuh`` with
+           the same C interface ``pairhmm_band_superstep``: the middle
+           superstep of chip_smoke.py phase 15's SP pipeline at C = 8, 16
+           and 32, every output bit for bit;
+
+Both builds are called through their C entry points with the same
+prepared arguments, so no wrapper's host work is timed on one side only
+(``extend`` and ``pairhmm``; ``band_superstep`` runs both through the
+wrapper).  Each pair runs old, new, new, old (CUDA events, median of 7
+each); the
+outputs must agree (the extension and the band superstep bit for bit,
+PairHMM within rtol 1e-5).  Registers and spills of both builds (ptxas) are
+printed.  The last line of standard output is one JSON object with every
+time.
 """
 
 from __future__ import annotations
@@ -59,146 +74,247 @@ def in_turns(old, new) -> dict:
     return {"old_ms": [o1, o2], "new_ms": [n1, n2]}
 
 
-def old_library(old_dir: str, name: str):
-    path = os.path.relpath(os.path.join(old_dir, f"{name}.cu"), build.PACKAGE_DIR)
-    return build.load_library(f"{name}_old", [path])
+def old_library(old_dir: str, name: str, headers=()):
+    rel = lambda f: os.path.relpath(os.path.join(old_dir, f), build.PACKAGE_DIR)
+    return build.load_library(f"{name}_old", [rel(f"{name}.cu")], [rel(h) for h in headers])
 
 
-def band_ab(old_dir: str, dev) -> dict:
-    """The middle superstep of phase 15's SP pipeline, at C = 8 and 32."""
+def ptxas(built) -> dict:
+    """{kernel entry: "N registers, S bytes spill stores"} from nvcc's log."""
+    out, entry = {}, None
+    for line in built.log.splitlines():
+        if "entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and "spill stores" in line:
+            out[entry] = line.strip().split(",")[1].strip()
+        elif entry and "registers" in line:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            out[entry] = f"{regs}, {out.get(entry, '0 bytes spill stores')}"
+            entry = None
+    return out
+
+
+def print_ptxas(name: str, old, new) -> dict:
+    regs = {"old": ptxas(old), "new": ptxas(new)}
+    for which, kernels in regs.items():
+        for entry, line in kernels.items():
+            print(f"  ptxas {name} {which}: {entry}: {line}", flush=True)
+    return regs
+
+
+def extend_ab(old_dir: str, dev) -> dict:
+    """The bench batch and ExtendEngine's own launches."""
+    import acc_genomics_tpu_torch.engine.extend_engine as engine_module
+    from acc_genomics_tpu_torch.engine.extend_engine import ExtendEngine
+    from acc_genomics_tpu_torch.ops.extend import kernel as EK
+    from acc_genomics_tpu_torch.tools.bench_shapes import (
+        capture_calls,
+        extend_batches,
+        extend_bench_seeds,
+    )
+
+    built = old_library(old_dir, "sw_extend")
+    fn = built.lib.sw_extend
+    fn.argtypes = [_P] * 7 + [_I] * 11 + [_P] * 3
+    fn.restype = ctypes.c_int
+    new_built = EK.build_kernels()["sw_extend"]
+    new_fn = new_built.lib.sw_extend
+    regs = print_ptxas("sw_extend", built, new_built)
+    batches = {b["name"]: b for b in extend_batches(dev)}
+    as_call = lambda b: [b[k] for k in ("q", "t", "qlen", "tlen", "h0", "max_ins", "max_ins",
+                                        "params")]
+    eng = ExtendEngine(device=dev)
+    calls = []
+    with capture_calls(engine_module, "sw_extend_rows", calls):
+        eng.extend_seeds(extend_bench_seeds()[1])
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    out = {"ptxas": regs}
+    for name, launches in (("bench", [(as_call(batches["bench"]), {})]), ("engine", calls),
+                           ("tiles", [(as_call(batches["gaps at column 256, Q 520"]), {})])):
+        prepared = []
+        for args, kw in launches:
+            q, t, ql, tl, h0, mi, md, p = [*args, *kw.values()]
+            Q, B = q.shape
+            eh = torch.empty((2, Q + 2, B), dtype=torch.int32, device=dev)
+            res = torch.empty((7, B), dtype=torch.int32, device=dev)
+            prepared.append((q.to(torch.uint8).contiguous(), t.to(torch.uint8).contiguous(),
+                             ql, tl, h0, mi, md, p, eh, res))
+
+        def with_lib(f):
+            def go():
+                for q, t, ql, tl, h0, mi, md, p, eh, res in prepared:
+                    err = f(*(_ptr(x) for x in (q, t, ql, tl, h0, mi, md)), q.shape[0],
+                            t.shape[0], q.shape[1], p.o_del, p.e_del, p.o_ins, p.e_ins, p.w,
+                            p.sc_match, p.sc_mismatch, p.sc_ambig, _ptr(eh), _ptr(res),
+                            stream)
+                    if err:
+                        raise RuntimeError(f"extension kernel: error {err}")
+            return go
+
+        with_lib(fn)()
+        got = [EK.sw_extend_rows(*x[:8]) for x in prepared]  # the wrapper's result
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, x[9]) for g, x in zip(got, prepared)):
+            raise AssertionError(f"extend, {name}: old and new kernels differ")
+        tasks = sum(x[0].shape[1] for x in prepared)
+        out[name] = {"launches": len(prepared), "tasks": tasks,
+                     **in_turns(with_lib(fn), with_lib(new_fn))}
+        print(f"extend, {name} ({len(prepared)} launches, {tasks} tasks): {out[name]}",
+              flush=True)
+    return out
+
+
+def pairhmm_ab(old_dir: str, dev) -> dict:
+    """bench.py's pairs in their row buckets and the engine's own buckets."""
+    import inspect
+
+    import acc_genomics_tpu_torch.engine.pairhmm_engine as engine_module
+    from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
+    from acc_genomics_tpu_torch.ops.pairhmm import kernel as K
+    from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext
+    from acc_genomics_tpu_torch.ops.pairhmm.convert import context_tables, quals_to_torch
+    from acc_genomics_tpu_torch.ops.pairhmm.pack import pack_pairhmm_quals
+    from acc_genomics_tpu_torch.tools.bench_shapes import (
+        capture_calls,
+        flat_matrix_args,
+        pairhmm_bench_groups,
+        pairhmm_engine_batches,
+    )
+
+    built = old_library(old_dir, "pairhmm_forward", ["pairhmm_common.cuh"])
+    fn = built.lib.pairhmm_forward_quals
+    fn.argtypes = [_P] * 10 + [ctypes.c_float, _I, _I, _I, _I, _P, _P]
+    fn.restype = ctypes.c_int
+    new_built = K.build_kernels()
+    new_fn = new_built.lib.pairhmm_forward_quals
+    regs = print_ptxas("pairhmm_forward", built, new_built)
+    ctx = PairHMMContext(np.float32)
+    ph2pr, m2m, _ = context_tables(ctx, dev)
+    ic = float(ctx.initial_constant)
+    bench = [(list(quals_to_torch(pack_pairhmm_quals(g, rows=rows, cols=384,
+                                                     sort_by_haplen=True), dev))
+              + [ph2pr, m2m, ic], {"expand": "arith"})
+             for rows, g in pairhmm_bench_groups().items()]
+    calls = []
+    with capture_calls(engine_module, "pairhmm_forward_from_quals", calls):
+        PairHMMEngine(device=dev).compute_matrix_flat(
+            *flat_matrix_args(*pairhmm_engine_batches(1)[0]))
+    sig = inspect.signature(K.pairhmm_forward_from_quals)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    tiny = float(np.finfo(np.float32).tiny) * 2.0**-10
+    out = {"ptxas": regs}
+    for name, launches in (("bench", bench), ("engine", calls)):
+        prepared = []
+        for args, kw in launches:
+            a = sig.bind(*args, **kw)
+            a.apply_defaults()
+            v = a.arguments
+            res = torch.empty(v["rs"].shape[1], dtype=torch.float32, device=dev)
+            prepared.append((args, kw, v, res))
+
+        def with_lib(f):
+            def go():
+                for _, _, v, res in prepared:
+                    rows, bsz = v["rs"].shape
+                    gather = v["expand"] == "gather"
+                    err = f(*(_ptr(v[k]) for k in ("q", "i", "d", "c", "rs", "hap_ext",
+                                                   "rslen", "haplen")),
+                            _ptr(v["ph2pr"]) if gather else None,
+                            _ptr(v["m2m"]) if gather else None,
+                            ctypes.c_float(float(v["initial_constant"])), int(gather), rows,
+                            v["hap_ext"].shape[0] - rows, bsz, _ptr(res), stream)
+                    if err:
+                        raise RuntimeError(f"PairHMM kernel: error {err}")
+            return go
+
+        with_lib(fn)()
+        # the wrapper's result against the old library's
+        got = [K.pairhmm_forward_from_quals(*args, **kw) for args, kw, _, _ in prepared]
+        torch.cuda.synchronize()
+        for g, (_, _, _, res) in zip(got, prepared):
+            torch.testing.assert_close(g, res, rtol=1e-5, atol=tiny)
+        shapes = sorted({(tuple(v["rs"].shape), v["hap_ext"].shape[0] - v["rs"].shape[0])
+                         for _, _, v, _ in prepared})
+        out[name] = {"launches": len(prepared), "shapes": shapes,
+                     **in_turns(with_lib(fn), with_lib(new_fn))}
+        print(f"pairhmm, {name}: {out[name]}", flush=True)
+    return out
+
+
+def middle_supersteps(dev, Cs):
+    """(C, the recorded arguments of ``pairhmm_band_superstep``) of the
+    middle superstep of chip_smoke.py phase 15's SP pipeline at each C."""
     import acc_genomics_tpu_torch.engine.pairhmm_engine as engine_module
     import acc_genomics_tpu_torch.parallel.sharded as sharded_module
     from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
     from acc_genomics_tpu_torch.io.synth import gen_pairhmm_input
-    from acc_genomics_tpu_torch.ops.pairhmm import band_kernel as BK
     from acc_genomics_tpu_torch.parallel import make_mesh, pairhmm_forward_dpsp_from_quals
+    from acc_genomics_tpu_torch.tools.bench_shapes import capture_calls, flat_matrix_args
 
-    built = old_library(old_dir, "pairhmm_band")
-    fn = built.lib.pairhmm_band_chunk
-    fn.argtypes = [_P] * 15 + [_I] * 4 + [_P]
-    fn.restype = ctypes.c_int
     mesh = make_mesh((1, 4), devices=[dev] * 4)
     reads, haps = gen_pairhmm_input(np.random.default_rng(13), 256, 8, max_read_len=250,
                                     max_hap_len=4096, derived=True)
-    cat = lambda key: np.concatenate([np.asarray(r[key], np.uint8) for r in reads])
-    flat = (cat("rs"), cat("q"), cat("i"), cat("d"), cat("c"),
-            np.array([len(r["rs"]) for r in reads], np.int32),
-            np.concatenate([np.asarray(h, np.uint8) for h in haps]),
-            np.array([len(h) for h in haps], np.int32))
-    sp_calls, out = [], {}
-    real = engine_module.pairhmm_forward_dpsp_from_quals
-    engine_module.pairhmm_forward_dpsp_from_quals = (
-        lambda *a, **kw: (sp_calls.append((a, kw)), real(*a, **kw))[1])
-    try:
-        PairHMMEngine(device=dev, mesh=mesh).compute_matrix_flat(*flat)
-    finally:
-        engine_module.pairhmm_forward_dpsp_from_quals = real
+    sp_calls = []
+    with capture_calls(engine_module, "pairhmm_forward_dpsp_from_quals", sp_calls):
+        PairHMMEngine(device=dev, mesh=mesh).compute_matrix_flat(*flat_matrix_args(reads, haps))
     (_, *sp_args), sp_kw = sp_calls[0]
-    for C in (8, 32):
-        rows = sp_args[0].shape[0]
-        mid = (rows // C + 3) // 2
+    for C in Cs:
+        mid = (sp_args[0].shape[0] // C + 3) // 2
         calls = []
-        real_step = sharded_module.pairhmm_band_superstep
-
-        def record(*a):
-            if len(calls) == 0 and a[8] == mid:
-                calls.append([x.clone() if isinstance(x, torch.Tensor) else x for x in a])
-            return real_step(*a)
-
-        sharded_module.pairhmm_band_superstep = record
-        try:
+        with capture_calls(sharded_module, "pairhmm_band_superstep", calls, keep=(mid,)):
             pairhmm_forward_dpsp_from_quals(mesh, *sp_args, **dict(sp_kw, C=C))
-        finally:
-            sharded_module.pairhmm_band_superstep = real_step
-        args = calls[0]
-        front, planes, tables, hap, slots, tops, edges, res, t, a, n, _, _ = args
-        chunks = [x.contiguous() for x in BK.superstep_chunks(
-            front, planes, tables, hap, slots, tops, edges, t, a, n, C)]
-        S, _, _, lanes = chunks[0].shape
-        hc = chunks[2].shape[1]
-        bot = torch.empty((3, S, hc, lanes), dtype=torch.float32, device=dev)
-        redge = torch.empty((3, S, C, lanes), dtype=torch.float32, device=dev)
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-        def old():
-            err = fn(*(_ptr(x) for x in chunks), *(_ptr(o) for o in (*bot, *redge)),
-                     S, C, hc, lanes, stream)
-            if err:
-                raise RuntimeError(f"old band kernel: error {err}")
-
-        def new():
-            BK.pairhmm_band_superstep(*args)
-
-        old()
-        new()
-        torch.cuda.synchronize()
-        got = args[5][1 - t % 2, :, a:a + n].transpose(-1, -2)
-        scale = float(bot.abs().max())
-        torch.testing.assert_close(got, bot, rtol=1e-5, atol=1e-5 * scale)
-        out[f"C{C}"] = {"slots": S, "lanes": lanes, "hc": hc, **in_turns(old, new)}
-        print(f"band, middle superstep, C {C} ({S} slots x {lanes} lanes, hc {hc}): "
-              f"{out[f'C{C}']}", flush=True)
-    return out
+        yield C, calls[0][0]
 
 
-def smem_ab(old_dir: str, dev) -> dict:
-    """Phase 12's 65,536 reads and phase 14's 2,048 over the 100 Mbp index."""
-    from acc_genomics_tpu_torch.build import ensure_native
-    from acc_genomics_tpu_torch.config import SmemConfig
-    from acc_genomics_tpu_torch.io.synth import gen_reference_with_repeats, gen_smem_reads
-    from acc_genomics_tpu_torch.ops.smem import kernel as MK
-    from acc_genomics_tpu_torch.ops.smem.index import FMIndex
-    from acc_genomics_tpu_torch.ops.smem.table import DeviceIndex
+def band_superstep_ab(old_dir: str, dev) -> dict:
+    """The middle superstep of phase 15's SP pipeline at C = 8, 16 and 32
+    through the same wrapper on both builds of ``pairhmm_band_superstep``:
+    every output (the next top row, the edge columns, the results) bit for
+    bit."""
+    from acc_genomics_tpu_torch.ops.pairhmm import band_kernel as BK
 
-    built = old_library(old_dir, "smem_collect")
-    fn = built.lib.smem_collect
-    fn.argtypes = [_P] + [_I] * 6 + [_P] * 2 + [_I] * 8 + [_P] * 5
+    built = old_library(old_dir, "pairhmm_band", ["pairhmm_common.cuh"])
+    new_built = BK.build_kernels()
+    fn = built.lib.pairhmm_band_superstep
+    fn.argtypes = new_built.lib.pairhmm_band_superstep.argtypes
     fn.restype = ctypes.c_int
-    ensure_native()
-    rng = np.random.default_rng(0)
-    genome = gen_reference_with_repeats(rng, 100_000_000)
-    fm = FMIndex.build(genome)
-    batches = {"65536": gen_smem_reads(rng, genome, 65536, read_len=101)}
-    batches["2048"] = gen_smem_reads(rng, genome, 2048, read_len=101)
-    idx = DeviceIndex.build(fm, dev)
-    params = SmemConfig().params()
-    chain_cap, mem_cap = MK.caps(params)
-    out = {}
-    for name, reads in batches.items():
-        seq = np.full((128, len(reads)), 4, np.uint8)
-        for k, r in enumerate(reads):
-            seq[: len(r), k] = r
-        lens = torch.tensor([len(r) for r in reads], dtype=torch.int32, device=dev)
-        seq = torch.from_numpy(seq).to(dev)
-        B = len(reads)
-        mem = torch.zeros((5, mem_cap, B), dtype=torch.int32, device=dev)
-        counts = torch.zeros((3, B), dtype=torch.int32, device=dev)
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    regs = print_ptxas("pairhmm_band", built, new_built)
+    real = BK.build_kernels
+    out = {"ptxas": regs}
+    try:
+        for C, args in middle_supersteps(dev, (8, 16, 32)):
+            state = {}
+            for which, lib in (("old", built), ("new", new_built)):
+                run = [x.clone() if isinstance(x, torch.Tensor) else x for x in args]
+                BK.build_kernels = lambda lib=lib: lib
+                BK.pairhmm_band_superstep(*run)
+                state[which] = run[5:8]
+            torch.cuda.synchronize()
+            # bits, not values: unwritten scratch may hold NaN patterns
+            if not all(torch.equal(o.view(torch.int32), n.view(torch.int32))
+                       for o, n in zip(state["old"], state["new"])):
+                raise AssertionError(f"band superstep, C {C}: old and new builds differ")
 
-        def old():
-            mem.zero_()
-            err = fn(_ptr(idx.tbl), idx.primary, *idx.l2_values, _ptr(seq), _ptr(lens), 128, B,
-                     params.min_seed_len, params.split_len, params.split_width,
-                     params.max_mem_intv, chain_cap, mem_cap, _ptr(mem), _ptr(counts[0]),
-                     _ptr(counts[1]), _ptr(counts[2]), stream)
-            if err:
-                raise RuntimeError(f"old smem kernel: error {err}")
+            def with_lib(lib):
+                def go():
+                    BK.build_kernels = lambda: lib
+                    BK.pairhmm_band_superstep(*args)
+                return go
 
-        def new():
-            return MK.smem_collect(idx, seq, lens, params)
-
-        old()
-        got = new()
-        torch.cuda.synchronize()
-        if not (torch.equal(got[0], mem) and torch.equal(torch.stack(got[1:]), counts)):
-            raise AssertionError(f"smem, {name} reads: old and new kernels differ")
-        out[name] = in_turns(old, new)
-        print(f"smem, {name} reads: {out[name]}", flush=True)
+            out[f"C{C}"] = in_turns(with_lib(built), with_lib(new_built))
+            print(f"band superstep, C {C}: outputs equal bit for bit; {out[f'C{C}']}",
+                  flush=True)
+    finally:
+        BK.build_kernels = real
     return out
+
+
+ABS = {"extend": extend_ab, "pairhmm": pairhmm_ab, "band_superstep": band_superstep_ab}
 
 
 def main(argv) -> int:
-    if len(argv) != 1 or not torch.cuda.is_available():
+    names = argv[1:] or ["extend", "pairhmm", "band_superstep"]
+    if not argv or not set(names) <= set(ABS) or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
@@ -206,7 +322,7 @@ def main(argv) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    result = {"card": card, "band": band_ab(argv[0], dev), "smem": smem_ab(argv[0], dev)}
+    result = {"card": card, **{name: ABS[name](argv[0], dev) for name in names}}
     print(json.dumps(result))
     return 0
 

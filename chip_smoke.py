@@ -4,7 +4,10 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, all at
 once.  PairHMM: checks the forward kernel against its plain PyTorch
-version at the benchmark shapes and at the shapes the engine launches,
+version at the benchmark shapes, on the edges of its segment design
+(buckets of 1 to 255 rows, haplotypes of 1 and 1024 columns, unpadded
+packs whose last warp is partly filled, all three front ends) and at the
+shapes the engine launches,
 drives the PairHMM engine's main path (compute_matrix_flat,
 compute_pairs_flat_stream) on a WES-shaped batch of 16,384 pairs, and
 checks the contract edges (reference corpus, fp64 underflow recompute,
@@ -15,10 +18,14 @@ engine and the oracle, and checks its edges (ties, mixed buckets, host
 fallback, element overflow).  HaplotypeCaller: drives
 HaplotypeCallerCore on the port's two engines at 64 and 1024 regions.
 BWA-MEM: checks the seed-extension kernel bit for bit against its plain
-version at the extension benchmark's shape and on three edge batches,
-drives ExtendEngine on 4096 seeds against the native host engine and the
-oracle (with its host fallback, degenerate seeds and the BWA-SW record
-fixture); builds a 100 Mbp FM-index, checks the SMEM kernel against its
+version at the extension benchmark's shape, on three edge batches and on
+the edges of its one-warp-a-task design (query lengths at the boundaries
+of 1, 2 and 8 columns a lane, band 8, max_ins below the band, h0 0, and
+past 256 columns its shared-memory tiles: gaps at column 256, Q 1536 and
+the Q 25,600 cap), drives ExtendEngine on 4096 seeds against the native
+host engine and the oracle (with its host fallback, queries past 256
+columns on the card, degenerate seeds and the BWA-SW record fixture);
+builds a 100 Mbp FM-index, checks the SMEM kernel against its
 plain version on 65,536 reads of 101 bp (with the distribution of its
 extensions a read), drives SmemEngine on them against the native host
 engine and the oracle (with its edges); then drives BwaMemSeeding on
@@ -47,7 +54,6 @@ at first use).  Imports only the port, never JAX or the JAX package.
 from __future__ import annotations
 
 import concurrent.futures
-import contextlib
 import json
 import os
 import statistics
@@ -84,7 +90,6 @@ SMEM_OPS_PER_PROBE = 32  # int32: two occ counts (masks, popcounts, sums) an ext
 SMEM_PROBE_BYTES = 2 * 32  # two 32-byte probe-table rows an extension
 SMEM_GENOME = 100_000_000  # bases: drivers/smem_driver.py's genome scale
 SMEM_READS = 65536  # bench_smem's lane count, reads of 101
-EXTEND_SEEDS = 4096  # bench_extend_engine's seeds
 BWA_READS = 2048  # bench_bwamem's reads (max_occ 4, flank 100)
 SW_BENCH_PAIRS = 8192  # bench.py bench_sw: one ref of 286 vs 8192 alts
 HC_SIZES = (64, 1024)  # regions: bench_hc's shape, and one full SW max_batch
@@ -191,40 +196,6 @@ def kernel_vs_plain(name: str, got: np.ndarray, want: np.ndarray, log10_ic) -> f
         f"{int(np.sum((low > 0) & ~normal))} denormal, {int(normal.sum())} "
         f"normal (max raw rel err {rel_low.max() if len(rel_low) else 0.0:.3e})")
     return max_abs
-
-
-@contextlib.contextmanager
-def capture_calls(module, name: str, calls: list, keep=None):
-    """Record a copy of the arguments of every call of ``module.<name>``
-    while the block runs, or of the calls whose index is in ``keep`` (the
-    copies are taken on the caller's stream)."""
-    import torch
-
-    real = getattr(module, name)
-    seen = [0]
-
-    def recorder(*args, **kw):
-        if keep is None or seen[0] in keep:
-            calls.append(([a.clone() if isinstance(a, torch.Tensor) else a
-                           for a in args], dict(kw)))
-        seen[0] += 1
-        return real(*args, **kw)
-
-    setattr(module, name, recorder)
-    try:
-        yield calls
-    finally:
-        setattr(module, name, real)
-
-
-def flat_matrix_args(reads, haps):
-    cat = lambda key: np.concatenate([np.asarray(r[key], np.uint8) for r in reads])
-    return (
-        cat("rs"), cat("q"), cat("i"), cat("d"), cat("c"),
-        np.array([len(r["rs"]) for r in reads], np.int32),
-        np.concatenate([np.asarray(h, np.uint8) for h in haps]),
-        np.array([len(h) for h in haps], np.int32),
-    )
 
 
 def matrix_pair_args(f):
@@ -543,66 +514,6 @@ def sw_phases(card: str) -> list:
     ]
 
 
-def extend_batches(dev):
-    """Phase 10's batches as (name, q (Q, B), t (T, B), qlen, tlen, h0)
-    on the card: bench_extend's (seed 0, 2048 tasks, Q 128, T 256, qlen
-    101, tlen 160, h0 25), a batch where round 2 runs (an 80-base
-    insertion after 20 query bases: the first round's best cell is 80 >=
-    3/4 of the band off the diagonal), the bench batch with 5% ambiguous
-    bases, and 512 tasks at the caps (qlen 256, tlen 1024).  The round-2
-    batch starts at h0 100, enough to cross the 86-point gap."""
-    import torch
-
-    def on(name, q, t, ql, tl, h0):
-        return (name, *(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-                        for x in (q.astype(np.uint8), t.astype(np.uint8), ql, tl, h0)))
-
-    rng = np.random.default_rng(0)
-    bsz, qmax, tmax = 2048, 128, 256
-    q = rng.integers(0, 4, (qmax, bsz))
-    t = rng.integers(0, 4, (tmax, bsz))
-    t[:qmax] = np.where(rng.random((qmax, bsz)) < 0.95, q, t[:qmax])
-    full = lambda v: np.full(bsz, v, np.int32)
-    out = [on("bench", q, t, full(101), full(160), full(25))]
-
-    rng = np.random.default_rng(1)
-    q2 = rng.integers(0, 4, (256, bsz))
-    t2 = np.concatenate([q2[:20], rng.integers(0, 4, (80, bsz)), q2[20:], q2[:156]])
-    out.append(on("round2", q2, t2, full(200), full(280), full(100)))
-
-    amb_q, amb_t = q.copy(), t.copy()
-    amb_q[rng.random(q.shape) < 0.05] = 4
-    amb_t[rng.random(t.shape) < 0.05] = 4
-    out.append(on("ambiguous", amb_q, amb_t, full(101), full(160), full(25)))
-
-    n = 512
-    q4 = rng.integers(0, 4, (256, n))
-    t4 = rng.integers(0, 4, (1024, n))
-    t4[:256] = np.where(rng.random((256, n)) < 0.97, q4, t4[:256])
-    out.append(on("caps", q4, t4, np.full(n, 256, np.int32), np.full(n, 1024, np.int32),
-                  np.full(n, 19, np.int32)))
-    return out
-
-
-def extend_bench_seeds(n: int = EXTEND_SEEDS):
-    """bench_extend_engine's seeds: seed 0, a 20 kbp genome, reads of 101
-    with 4% errors, a planted 19-24 base seed, 150-base flanks."""
-    rng = np.random.default_rng(0)
-    genome = rng.integers(0, 4, 20_000).astype(np.uint8)
-    seeds = []
-    for _ in range(n):
-        pos = int(rng.integers(200, len(genome) - 400))
-        read = genome[pos: pos + 101].copy()
-        err = rng.random(101) < 0.04
-        read[err] = (read[err] + rng.integers(1, 4, err.sum())) % 4
-        qbeg = int(rng.integers(5, 101 - 30))
-        slen = int(rng.integers(19, 25))
-        read[qbeg: qbeg + slen] = genome[pos + qbeg: pos + qbeg + slen]
-        seeds.append(dict(read=read, rseq=genome[pos - 150: pos + 101 + 150],
-                          qbeg=qbeg, rbeg_off=150 + qbeg, len=slen))
-    return genome, seeds
-
-
 def host_extend_seeds(seeds, params):
     """ExtendEngine's records computed over the native host engine."""
     from acc_genomics_tpu_torch.engine.extend_engine import resolve_seeds, seed_tasks
@@ -626,8 +537,15 @@ def extend_phases(card: str, dev) -> dict:
     entry (its launches: the engine phase's; phase 13 adds its own)."""
     import torch
 
+    from acc_genomics_tpu_torch.config import ExtendConfig
     from acc_genomics_tpu_torch.engine.extend_engine import ExtendEngine
     from acc_genomics_tpu_torch.ops.extend import kernel as EK
+    import acc_genomics_tpu_torch.engine.extend_engine as engine_module
+    from acc_genomics_tpu_torch.tools.bench_shapes import (
+        capture_calls,
+        extend_batches,
+        extend_bench_seeds,
+    )
     from acc_genomics_tpu_torch.io.bwasw_records import (
         read_results,
         read_task_file,
@@ -637,17 +555,23 @@ def extend_phases(card: str, dev) -> dict:
     # -- 10. kernel vs plain --------------------------------------------------
     err = 0
     bench = None
-    for name, q, t, ql, tl, h0 in extend_batches(dev):
-        got = EK.sw_extend_rows(q, t, ql, tl, h0, ql, ql)
-        want, cells = EK.sw_extend_plain(q, t, ql, tl, h0, ql, ql, count_cells=True)
+    for bt in extend_batches(dev):
+        name, q, t, ql, tl, h0, mi, p = (bt[k] for k in ("name", "q", "t", "qlen", "tlen",
+                                                         "h0", "max_ins", "params"))
+        got = EK.sw_extend_rows(q, t, ql, tl, h0, mi, mi, p)
+        want, cells = EK.sw_extend_plain(q, t, ql, tl, h0, mi, mi, p, count_cells=True)
         torch.cuda.synchronize()
         e = int((got.long() - want.long()).abs().max())
         err = max(err, e)
-        rounds2 = int((got[6] == 200).sum())
-        say(f"extend {name}: {q.shape[1]} tasks, Q {q.shape[0]} T {t.shape[0]}; "
+        rounds2 = int((got[6] == 2 * p.w).sum())
+        say(f"extend {name}: {q.shape[1]} tasks, Q {q.shape[0]} T {t.shape[0]} w {p.w}; "
             f"max_abs_err={e} over 7 outputs; round 2 on {rounds2} lanes; "
             f"mean score {float(got[0].float().mean()):.3f}")
         check(e == 0, f"extend kernel vs plain, {name} batch: not bit-exact")
+        if name in ("round2", "band 8", "gaps at column 256, Q 520, band 16"):
+            check(rounds2 > 0, f"the {name} batch ran round 2 on no lane")
+        if name.startswith("gaps at column 256"):
+            check(bool((got[1] > 256).any()), f"{name}: no alignment past column 256")
         if name == "round2":
             check(rounds2 > q.shape[1] // 2, "the round-2 batch ran round 2 on few lanes")
         if name == "bench":
@@ -714,8 +638,23 @@ def extend_phases(card: str, dev) -> dict:
     by_idx = {r["seed_index"]: r for r in recs}
     check(len(recs) == len(want) and all(by_idx[w["seed_index"]] == w for w in want),
           "BWA-SW record fixture vs golden results, on the card")
+    long_q = [dict(read=genome[p0: p0 + 400].copy(), rseq=genome[p0 - 150: p0 + 550],
+                   qbeg=qb, rbeg_off=150 + qb, len=21)
+              for p0, qb in ((2000, 300), (6000, 30), (9000, 100))]
+    eng = ExtendEngine(ExtendConfig(max_qlen=512), device=dev)
+    calls = []
+    with capture_calls(engine_module, "sw_extend_rows", calls):
+        got = eng.extend_seeds(seeds[:8] + long_q)
+    tiled = [args for args, _ in calls if args[0].shape[0] > EK.REGISTER_QUERY]
+    check(eng.q_buckets[-1] == 512 and eng.stats["host_fallback"] == 0 and len(tiled) > 0
+          and got == host_extend_seeds(seeds[:8] + long_q, eng.params),
+          "ExtendEngine(max_qlen=512): queries past 256 on the card, all exact")
+    check(all(torch.equal(EK.sw_extend_rows(*a), EK.sw_extend_plain(*a)) for a in tiled),
+          "ExtendEngine(max_qlen=512): launches past 256 columns vs plain")
     say(f"extend edges: 1 seed past the caps on the host, 3 degenerate seeds, "
-        f"{len(want)} BWA-SW fixture records: all exact")
+        f"{len(want)} BWA-SW fixture records, max_qlen 512 (3 seeds with a query past "
+        f"{EK.REGISTER_QUERY} on the card, {len(tiled)} launches of a 512-column bucket "
+        f"equal to the plain version): all exact")
     return {"name": "sw_extend", "route": "cuda", "source": EXTEND_SOURCE,
             "replaces": EXTEND_TPU, "launches": launches, "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms, **ext_bound}
@@ -949,6 +888,7 @@ def pipeline_phase(card: str, engines, fm, genome, bwa_reads, seeding_hits,
     import acc_genomics_tpu_torch.engine.smem_engine as smem_module
     import acc_genomics_tpu_torch.models.bwa_mem as bwa_module
     from acc_genomics_tpu_torch.config import SmemConfig
+    from acc_genomics_tpu_torch.tools.bench_shapes import capture_calls
     from acc_genomics_tpu_torch.engine.smem_engine import SmemEngine
     from acc_genomics_tpu_torch.models import BwaEngines, BwaMemDevicePipeline, BwaMemSeeding
     from acc_genomics_tpu_torch.ops.extend import kernel as EK
@@ -980,9 +920,12 @@ def pipeline_phase(card: str, engines, fm, genome, bwa_reads, seeding_hits,
         f"{int(got[2].sum())} flagged")
     check(s_err == 0, "SMEM kernel vs plain on the pipeline's reads: not exact")
     probe_spread("smem pipeline batch", got[3])
+    s_probes = int(got[3].long().sum())
+    s_bound = bound(SMEM_PROBE_BYTES * s_probes + nbytes(*s_args, *got),
+                    SMEM_OPS_PER_PROBE * s_probes, INT32_OPS_PER_S)
     s_ms = cuda_time_ms(lambda: MK.smem_collect(*s_args, **s_kw))
     say(f"smem pipeline batch: kernel_ms={s_ms:.4f} plain_ms={s_plain_ms:.4f} (one call, host "
-        f"clock) [{card}]")
+        f"clock) bound {s_bound} [{card}]")
     del got, want, smem_calls
 
     args, kw = calls[0]
@@ -1042,6 +985,8 @@ def pipeline_phase(card: str, engines, fm, genome, bwa_reads, seeding_hits,
         f"call ({s_ms / (anatomy['smem_s'] * 1e3):.3f}) [{card}]")
     smem_entry["pipeline_ms"] = s_ms
     smem_entry["pipeline_plain_ms"] = s_plain_ms
+    smem_entry["pipeline_bound_ms"] = s_bound["bound_ms"]
+    smem_entry["pipeline_bound_by"] = s_bound["bound_by"]
     check(all(np.array_equal(r[0], hits0) and r[3] == results[0][3] for r in results),
           "repeated pipeline calls differ")
     smem_entry["launches"] += launches.get("smem_collect", 0)
@@ -1140,6 +1085,11 @@ def mesh_phase(card: str, dev) -> dict:
     from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext
     from acc_genomics_tpu_torch.ops.pairhmm.convert import batch_to_torch
     from acc_genomics_tpu_torch.ops.pairhmm.pack import pack_pairhmm_batch
+    from acc_genomics_tpu_torch.tools.bench_shapes import (
+        capture_calls,
+        extend_bench_seeds,
+        flat_matrix_args,
+    )
     from acc_genomics_tpu_torch.parallel import (
         make_mesh,
         pairhmm_forward_dpsp,
@@ -1389,6 +1339,13 @@ def main() -> int:
         pack_pairhmm_batch,
         pack_pairhmm_quals,
     )
+    from acc_genomics_tpu_torch.tools.bench_shapes import (
+        capture_calls,
+        flat_matrix_args,
+        pairhmm_bench_groups,
+        pairhmm_edge_packs,
+        pairhmm_engine_batches,
+    )
 
     check(not [m for m in sys.modules if m == "jax" or m.startswith("jax.")],
           "the port imported jax")
@@ -1431,22 +1388,13 @@ def main() -> int:
     log10_ic = ctx.log10_initial_constant
 
     # -- 3. kernel vs plain at the benchmark shapes -------------------------
-    rng = np.random.default_rng(0)
     cols, row_buckets = 384, (64, 96, 128, 152)
-    tcs = gen_pairhmm_pairs(rng, 8192, max_read_len=150, max_hap_len=cols)
-    groups = {b: [] for b in row_buckets}
-    for t in tcs:
-        for b in row_buckets:
-            if len(t["rs"]) < b:
-                groups[b].append(t)
-                break
     coef_packs, qual_packs = [], []
-    for rows, group in groups.items():
-        if group:
-            coef_packs.append(batch_to_torch(pack_pairhmm_batch(
-                group, rows=rows, cols=cols, sort_by_haplen=True), dev))
-            qp = pack_pairhmm_quals(group, rows=rows, cols=cols, sort_by_haplen=True)
-            qual_packs.append((qp.cells, quals_to_torch(qp, dev)))
+    for rows, group in pairhmm_bench_groups(cols, row_buckets).items():
+        coef_packs.append(batch_to_torch(pack_pairhmm_batch(
+            group, rows=rows, cols=cols, sort_by_haplen=True), dev))
+        qp = pack_pairhmm_quals(group, rows=rows, cols=cols, sort_by_haplen=True)
+        qual_packs.append((qp.cells, quals_to_torch(qp, dev)))
     cells = sum(c for c, _ in qual_packs)
     inert = torch.cat([a[7] == 0 for _, a in qual_packs]).cpu().numpy()
     say(f"bench shapes: 8192 pairs, {len(qual_packs)} row buckets "
@@ -1473,13 +1421,21 @@ def main() -> int:
         say(f"bench {name}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
             f"kernel_gcups={cells / (k_ms * 1e-3) / 1e9:.3f} [{card}]")
 
+    # -- 3. the edges of the segment design: C = 8, 16, 32, the chunks and
+    # partly filled warps ---------------------------------------------------
+    for label, cp, qp in pairhmm_edge_packs(dev):
+        for name, (kern, plain, _) in front_ends.items():
+            a = cp if name == "coef" else qp
+            got = kern(*a).cpu().numpy()
+            want = plain(*a).cpu().numpy()
+            kernel_vs_plain(f"edge {label} {name}", got, want, log10_ic)
+            zero = (a[10] == 0) if name == "coef" else (a[6] == 0) | (a[7] == 0)
+            check(np.all(got[zero.cpu().numpy()] == 0.0),
+                  f"edge {label} {name}: inert lanes not exactly 0")
+
     # -- 4. engine main path --------------------------------------------------
-    rng = np.random.default_rng(1)
-    batches = []
-    for _ in range(3):
-        reads, haps = gen_pairhmm_input(rng, 1024, 16, max_read_len=150,
-                                        max_hap_len=380, derived=True)
-        batches.append((reads, haps, flat_matrix_args(reads, haps)))
+    batches = [(reads, haps, flat_matrix_args(reads, haps))
+               for reads, haps in pairhmm_engine_batches(3)]
     reads, haps, f0 = batches[0]
     n_pairs = len(reads) * len(haps)
     batch_cells = int(sum(len(r["rs"]) * len(h) for r in reads for h in haps))

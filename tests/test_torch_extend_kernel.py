@@ -175,3 +175,87 @@ def test_wrapper_dispatch():
     with pytest.raises(ValueError, match="unsupported"):
         K.sw_extend(*[torch.empty(a.shape, dtype=a.dtype, device="meta")
                       for a in (q, t, ql, tl, h0, ql, ql)])
+
+
+def _warp_edge_tasks(qlens, tmax, seed, h0=None):
+    """One Pallas block of tasks, qlen cycling through ``qlens``: targets
+    90% identical to the query (every fourth with a 7-base insertion after
+    20 query bases), tlen 1..tmax, h0 0-29 (or ``h0``)."""
+    rng = np.random.default_rng(seed)
+    tasks = []
+    for k in range(LANES):
+        ql = qlens[k % len(qlens)]
+        q = rng.integers(0, 4, ql).astype(np.uint8)
+        t = rng.integers(0, 4, int(rng.integers(1, tmax + 1))).astype(np.uint8)
+        src = q if k % 4 else np.concatenate([q[:20], rng.integers(0, 4, 7), q[20:]])
+        m = min(len(src), len(t))
+        t[:m] = np.where(rng.random(m) < 0.9, src[:m], t[:m])
+        tasks.append(dict(query=q, target=t,
+                          h0=int(rng.integers(0, 30)) if h0 is None else h0))
+    return tasks
+
+
+# the CUDA kernel's edges (one warp a task, K = ceil(Q / 32) query columns a
+# lane, tiles of 256 columns past 256): (tasks, Q, T, band, max_ins cap)
+WARP_EDGES = {
+    "qlen_0_1_31_32_k1": lambda: (_warp_edge_tasks([0, 1, 31, 32], 40, 10), 32, 40, 100, None),
+    "qlen_31_32_33_k2": lambda: (_warp_edge_tasks([31, 32, 33], 40, 11), 33, 40, 100, None),
+    "qlen_0_1_255_256_k8": lambda: (_warp_edge_tasks([0, 1, 255, 256], 24, 12), 256, 24,
+                                    100, None),
+    "band_8": lambda: (_warp_edge_tasks([60, 45, 30], 72, 13), 64, 72, 8, None),
+    "max_ins_5_below_band_8": lambda: (_warp_edge_tasks([60, 45, 30], 72, 14), 64, 72, 8, 5),
+    "h0_0": lambda: (_warp_edge_tasks([60, 45, 30], 72, 15, h0=0), 64, 72, 100, None),
+    # past 256 columns the kernel runs the query in tiles of 256
+    "tiles_qlen_255_256_257_300_band_300": lambda: (
+        _warp_edge_tasks([255, 256, 257, 300], 40, 16), 300, 40, 300, None),
+    "tiles_band_across_column_256": lambda: (
+        _warp_edge_tasks([300, 280], 300, 17), 300, 300, 100, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WARP_EDGES))
+def test_plain_matches_pallas_at_warp_edges(case):
+    """The plain version against the Pallas kernel (interpret mode) and the
+    oracle at the edges of the CUDA kernel's design."""
+    tasks, qmax, tmax, w, cap = WARP_EDGES[case]()
+    p = ExtendParams(w=w)
+    q, t, ql, tl, h0 = _pack(tasks, qmax, tmax)
+    mi = ql if cap is None else np.minimum(ql, cap).astype(np.int32)
+    tt = torch.from_numpy
+    got = K.sw_extend_rows(tt(q), tt(t), tt(ql), tt(tl), tt(h0), tt(mi), tt(mi), p).numpy()
+    want = sw_extend_pallas(*[jnp.asarray(x) for x in (q, t, ql, tl, h0, mi, mi)],
+                            jnp.asarray(np.full(1, tmax, np.int32)), interpret=True, params=p)
+    for k, key in enumerate(KEYS):
+        np.testing.assert_array_equal(got[k], np.asarray(want[key]), err_msg=key)
+    for b, x in enumerate(tasks):
+        want_b = sw_extend_oracle(x["query"], x["target"], x["h0"], max_ins=int(mi[b]),
+                                  max_del=int(mi[b]), params=p)
+        assert dict(zip(KEYS, got[:, b].tolist())) == want_b, b
+    if w == 8 and cap is None:
+        assert (got[6] == 16).any()  # round 2 ran
+
+
+def test_max_query_caps_extend_engine_buckets():
+    """``MAX_QUERY`` caps the kernel's query buckets at 25,600 columns,
+    far past ``max_qlen`` 512: queries past the 256 register columns stay
+    in the engine's buckets (on the card they run in shared-memory tiles),
+    with the native host's records."""
+    from acc_genomics_tpu_torch.config import ExtendConfig
+    from acc_genomics_tpu_torch.engine.extend_engine import ExtendEngine
+
+    assert K.REGISTER_QUERY == 256 and K.MAX_QUERY == 100 * 256
+    rng = np.random.default_rng(3)
+    genome = rng.integers(0, 4, 4000).astype(np.uint8)
+    seeds = []
+    for pos, qbeg in ((500, 300), (1500, 30), (2500, 200)):
+        read = genome[pos: pos + 400].copy()
+        read[rng.random(400) < 0.03] = 2
+        seeds.append(dict(read=read, rseq=genome[pos - 100: pos + 500], qbeg=qbeg,
+                          rbeg_off=100 + qbeg, len=20))
+    eng = ExtendEngine(ExtendConfig(max_qlen=512), device="cpu")
+    assert eng.q_buckets[-1] == 512
+    got = eng.extend_seeds(seeds)
+    assert eng.stats["host_fallback"] == 0
+    want = ExtendEngine(ExtendConfig(max_qlen=512, max_tlen=64), device="cpu")
+    assert got == want.extend_seeds(seeds)  # every seed on the host there
+    assert want.stats["host_fallback"] == 3

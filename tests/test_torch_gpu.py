@@ -474,3 +474,52 @@ def test_cuda_mesh_engine_read_bucket_48_matches_native_host(cuda):
     assert (raw >= 1e-28).all()
     want = np.log10(raw.astype(np.float64)) - np.float64(ctx.log10_initial_constant)
     np.testing.assert_allclose(got, want, rtol=2e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_extend_kernel_warp_edges(cuda):
+    """The one-warp-a-task kernel at its edges (qlen at the boundaries of
+    K = 1, 2 and 8 columns a lane, band 8, max_ins below the band, h0 0,
+    and past 256 columns the shared-memory tiles: qlen 255-300, gaps at
+    column 256, Q 1536 and the Q 25,600 cap) bit for bit against the plain
+    version; a bucket past the cap raises."""
+    from acc_genomics_tpu_torch.tools.bench_shapes import extend_batches
+
+    edges = [b for b in extend_batches(cuda)
+             if b["name"] not in ("bench", "round2", "ambiguous", "caps")]
+    assert len(edges) == 11
+    for b in edges:
+        args = [b[k] for k in ("q", "t", "qlen", "tlen", "h0", "max_ins", "max_ins", "params")]
+        got = EK.sw_extend_rows(*args)
+        want = EK.sw_extend_plain(*args)
+        assert torch.equal(got, want), b["name"]
+    q = torch.zeros((EK.MAX_QUERY + 1, 4), dtype=torch.uint8, device=cuda)
+    t = torch.zeros((8, 4), dtype=torch.uint8, device=cuda)
+    n = torch.ones(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="query bucket"):
+        EK.sw_extend_rows(q, t, n, n, n, n, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("front", ["coef", "arith", "gather"])
+def test_cuda_pairhmm_kernel_segment_edges(cuda, front):
+    """The segment kernel at C = 8, 16 and 32, one and two chunks, 255
+    rows and haplotypes of 1 and 1024 columns, and unpadded packs of 1, 5,
+    13 and 3 pairs whose last warp is partly filled: within rtol 1e-5 of
+    the plain version, inert lanes exactly 0."""
+    from acc_genomics_tpu_torch.tools.bench_shapes import pairhmm_edge_packs
+
+    ctx = PairHMMContext(np.float32)
+    ph2pr, m2m, _ = context_tables(ctx, cuda)
+    ic = float(ctx.initial_constant)
+    tiny = float(np.finfo(np.float32).tiny) * 2.0**-10
+    for label, cp, qp in pairhmm_edge_packs(cuda):
+        if front == "coef":
+            got, want = K.pairhmm_forward(*cp), K.pairhmm_forward_plain(*cp)
+            inert = cp[10] == 0
+        else:
+            got = K.pairhmm_forward_from_quals(*qp, ph2pr, m2m, ic, expand=front)
+            want = K.pairhmm_forward_from_quals_plain(*qp, ph2pr, m2m, ic, front)
+            inert = (qp[6] == 0) | (qp[7] == 0)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=tiny, msg=label)
+        assert torch.all(got[inert] == 0), label

@@ -168,3 +168,46 @@ def test_cpu_tensors_never_launch(rng):
     qp = pack_pairhmm_quals(tcs, rows=16, cols=24)
     K.pairhmm_forward_from_quals(*quals_to_torch(qp, "cpu"), None, None, 2.0**120)
     assert dict(K.LAUNCHES) == before
+
+
+def _edge_pairs(rng, rows, cols, n_reads=8, n_haps=2):
+    """Derived pairs whose reads fill a ``rows`` bucket but its absorbing
+    row, every haplotype exactly ``cols`` long."""
+    from acc_genomics_tpu.io.synth import gen_pairhmm_input
+
+    reads, haps = gen_pairhmm_input(rng, n_reads, n_haps, max_read_len=max(rows - 1, 1),
+                                    max_hap_len=max(cols, 64), derived=True)
+    haps = [np.concatenate([h, rng.integers(0, 4, cols)])[:cols].astype(np.uint8)
+            for h in haps]
+    return [dict(hap=h, **r) for r in reads for h in haps]
+
+
+# the CUDA kernel's edges that the Pallas kernel takes (rows a multiple of
+# 8): C = 8 (8 rows), 16 (16), 32 in one chunk (24, 32) and in two or eight
+# (40, 256), haplotypes of 1 and 1024 columns
+SEGMENT_EDGES = [(8, 24), (16, 24), (24, 40), (32, 40), (40, 40), (256, 320), (16, 1),
+                 (40, 1024)]
+
+
+@pytest.mark.parametrize("rows,cols", SEGMENT_EDGES)
+def test_plain_matches_pallas_at_segment_edges(rows, cols):
+    """Both plain versions against the Pallas kernel (interpret mode) at
+    the edges of the CUDA kernel's segments and chunks; inert lanes 0."""
+    tcs = _edge_pairs(np.random.default_rng(rows * 7 + cols), rows, cols)
+    pack = pack_pairhmm_batch(tcs, rows=rows, cols=cols, dtype=np.float32)
+    got = K.pairhmm_forward(*batch_to_torch(pack, "cpu")).numpy()
+    want = np.asarray(forward_from_pack_pallas(pack, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=RTOL_RAW, atol=0)
+    assert np.all(got[pack.n_real:] == 0.0)
+    qp = pack_pairhmm_quals(tcs, rows=rows, cols=cols)
+    ctx = PairHMMContext(np.float32)
+    ph2pr, m2m, ic = context_tables(ctx, "cpu")
+    got_q = K.pairhmm_forward_from_quals(*quals_to_torch(qp, "cpu"), ph2pr, m2m, ic).numpy()
+    want_q = np.asarray(pairhmm_forward_pallas_from_quals(
+        qp.q, qp.i, qp.d, qp.c, qp.rs, qp.hap_ext, qp.rslen, qp.haplen, ctx.ph2pr,
+        ctx.match_to_match, np.float32(ctx.initial_constant),
+        block_diags=block_diag_counts(qp), interpret=True))
+    np.testing.assert_allclose(got_q, want_q, rtol=RTOL_RAW, atol=0)
+    inert = (qp.rslen == 0) | (qp.haplen == 0)
+    assert np.all(got_q[inert] == 0.0)
+    assert np.all(got_q[: qp.n_real] > 0.0)

@@ -43,22 +43,26 @@
 //     and the first and last column outside the zero runs;
 //   * beg, end, gscore, the m == 0 break and the round-2 test are uniform
 //     across the warp, so each warp runs its own trip count;
-//   * a task's target codes are strided by B: the warp loads 32 rows at
-//     once, one a lane, a tile ahead, and hands them out by shuffle.
+//   * the warp loads the task's target codes 32 rows at once, one a lane,
+//     a tile ahead, and hands them out by shuffle.
 // Bound on this card: instruction issue, and the dependent chain of a row
 // (the scan's seven shuffles and four reductions, about 12 cross-lane
 // steps; two more shuffles a tile in the tiled form); the band is at most
 // 2w + 1 columns, and no scratch goes to device memory.
 //
-// A second front end, `sw_extend_fused`, replaces the device program
+// `extend_warp` is the file's one transcription of ksw_extend2.  It reads
+// the task's codes through accessors: `Strided` for the time-major
+// contract of `sw_extend` (query (Q, B), target (T, B), so the 32 rows of
+// a load are strided by B), `Forward` / `Reversed` for the second front
+// end, `sw_extend_fused`, which replaces the device program
 // acc_genomics_tpu/models/bwa_mem.py `_extend_seeds_fused` (which reaches
 // the Pallas kernel through `sw_extend_pallas`): per seed, the SA lookup,
-// both extensions read in place from the resident reads and text, and the
-// clip resolution, into (8, N) int32.  It runs one thread per seed on the
-// scalar transcription `extend_one`, statement for statement, with the eh
-// rows in a global scratch laid out (2, W + 2, N).
-// Inputs are time-major like the JAX contract: query (Q, B) and target
-// (T, B) uint8 codes, code 4 (or above) ambiguous.
+// both extensions read in place from the resident reads and text (a load
+// of 32 target rows is 32 consecutive bytes, forwards or backwards), and
+// the clip resolution, into (8, N) int32.  It runs a warp a seed: the
+// left extension, then the right one on fresh eh rows, K from the read
+// width (tiles past 256 columns, as in `sw_extend`).
+// Codes of 4 (or above) are ambiguous.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -69,8 +73,12 @@ struct Params {
   int o_del, e_del, o_ins, e_ins, w, sc_match, sc_mismatch, sc_ambig;
 };
 
-// Task readers of the fused front end: code of query column j / target
-// row i.
+// Task readers: code of query column j / target row i.
+struct Strided {  // p[j * stride]: the time-major (Q, B) / (T, B) contract
+  const uint8_t* p;
+  int64_t stride;
+  __device__ int operator()(int j) const { return p[j * stride]; }
+};
 struct Forward {  // p[j]
   const uint8_t* p;
   __device__ int operator()(int j) const { return p[j]; }
@@ -83,104 +91,6 @@ struct Reversed {  // p[-j]: a left extension reads its sequence backwards
 struct Extension {
   int score, qle, tle, gtle, gscore, max_off, w;
 };
-
-// ksw_extend2 of one task: query codes q(0..qlen-1), target codes
-// t(0..tlen-1); eh_h / eh_e are the task's scratch rows with stride B.
-template <class Q, class T>
-__device__ Extension extend_one(Q q, T t, int qlen, int tlen, int h0,
-                                int max_ins, int max_del, const Params& p,
-                                int32_t* eh_h, int32_t* eh_e, int64_t B) {
-  const int oe_del = p.o_del + p.e_del, oe_ins = p.o_ins + p.e_ins;
-  for (int j = 0; j <= qlen + 1; ++j) {
-    eh_h[j * B] = 0;
-    eh_e[j * B] = 0;
-  }
-
-  int max_score = h0, max_i = -1, max_j = -1, max_ie = -1, gscore = -1;
-  int max_off = 0, reg_score = h0, band_w = p.w;
-  for (int k = 0; k < 2; ++k) {
-    const int prev = reg_score;
-    band_w = p.w << k;
-    const int aw1 = min(band_w, min(max_ins, max_del));
-    int beg = 0, end = qlen;
-    int row0_h = max(h0 - oe_ins, 0);
-    int h1_init = h0 - p.o_del;
-    for (int i = 0; i < tlen; ++i) {
-      int f = 0, m = 0, mj = -1;
-      const int t_i = t(i);
-      if (beg < i - aw1) beg = i - aw1;
-      if (end > i + aw1 + 1) end = i + aw1 + 1;
-      if (end > qlen) end = qlen;
-      int h1;
-      if (beg == 0) {
-        h1_init -= p.e_del;
-        h1 = max(h1_init, 0);
-      } else {
-        h1 = 0;
-      }
-      int trail_zeros = 0, lead_zeros = 0;
-      bool lead_run_over = false;
-      for (int j = beg; j < end; ++j) {
-        const int q_j = q(j);
-        int e, M;
-        if (i == 0) {
-          e = 0;
-          if (j == 0) {
-            M = h0;
-          } else if (j == 1) {
-            M = row0_h;
-          } else {
-            row0_h = max(row0_h - p.e_ins, 0);
-            M = row0_h;
-          }
-        } else {
-          e = eh_e[j * B];
-          M = eh_h[j * B];
-        }
-        const int h_left = h1;
-        const int sc = (t_i >= 4 || q_j >= 4) ? p.sc_ambig
-                       : (t_i == q_j ? p.sc_match : p.sc_mismatch);
-        M = M != 0 ? M + sc : 0;
-        const int h = max(max(M, e), f);
-        h1 = h;
-        e = max(e - p.e_del, max(M - oe_del, 0));
-        f = max(f - p.e_ins, max(M - oe_ins, 0));
-        eh_e[j * B] = e;
-        eh_h[j * B] = h_left;
-        if (m <= h) {
-          mj = j;
-          m = h;
-        }
-        const bool zero = h_left == 0 && e == 0;
-        if (!lead_run_over) {
-          if (zero) ++lead_zeros;
-          else lead_run_over = true;
-        }
-        trail_zeros = zero ? trail_zeros + 1 : 0;
-      }
-      eh_h[end * B] = h1;
-      eh_e[end * B] = 0;
-      trail_zeros = h1 == 0 ? trail_zeros + 1 : 0;
-      if (end == qlen && gscore <= h1) {
-        max_ie = i;
-        gscore = h1;
-      }
-      if (m == 0) break;
-      if (m > max_score) {
-        max_score = m;
-        max_i = i;
-        max_j = mj;
-        max_off = max(max_off, abs(mj - i));
-      }
-      beg += lead_zeros;
-      end = min(end - trail_zeros + 2, qlen);
-    }
-    reg_score = max_score;
-    if (max_score == prev || max_off < ((band_w >> 1) + (band_w >> 2))) break;
-  }
-  return Extension{reg_score, max_j + 1, max_i + 1, max_ie + 1, gscore,
-                   max_off, band_w};
-}
 
 constexpr int kWarps = 4;  // warps (tasks) a block
 constexpr int kMaxK = 8;   // query columns a lane in registers: Q <= 256
@@ -274,17 +184,15 @@ __device__ __forceinline__ void row_tile(const int (&qc)[K], int (&eh_h)[K],
 }
 
 // ksw_extend2 of one task on the 32 lanes of a warp (every lane returns
-// the same result): query codes q[j * B] for j < qlen, target codes
-// t[i * B] for i < tlen.  kTiled (K = kMaxK): the query runs in tiles of
+// the same result): query codes q(j) for j < qlen, target codes t(i) for
+// i < tlen, read through the accessors above.  kTiled (K = kMaxK): the query runs in tiles of
 // kTile columns, their codes and eh rows in the warp's shared memory sm
 // (n_tiles * kTileBytes), each column read and written by its own lane
 // only; a row visits the tiles its band touches, in order.
-template <int K, bool kTiled>
-__device__ Extension extend_warp(const uint8_t* __restrict__ q,
-                                 const uint8_t* __restrict__ t, int64_t B,
-                                 int qlen, int tlen, int h0, int max_ins,
-                                 int max_del, const Params& p, int lane,
-                                 int n_tiles, unsigned char* sm) {
+template <int K, bool kTiled, class QA, class TA>
+__device__ Extension extend_warp(QA q, TA t, int qlen, int tlen, int h0,
+                                 int max_ins, int max_del, const Params& p,
+                                 int lane, int n_tiles, unsigned char* sm) {
   const int oe_ins = p.o_ins + p.e_ins;
   const int j0 = lane * K;
   int qc[K], eh_h[K], eh_e[K];
@@ -298,7 +206,7 @@ __device__ Extension extend_warp(const uint8_t* __restrict__ q,
 #pragma unroll
       for (int kk = 0; kk < K; ++kk) {
         const int j = tl * kTile + j0 + kk;
-        sm_q[slot(tl, kk)] = j < qlen ? q[j * B] : 4;
+        sm_q[slot(tl, kk)] = j < qlen ? q(j) : 4;
         sm_h[slot(tl, kk)] = 0;
         sm_e[slot(tl, kk)] = 0;
       }
@@ -307,7 +215,7 @@ __device__ Extension extend_warp(const uint8_t* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < K; ++kk) {
       const int j = j0 + kk;
-      qc[kk] = j < qlen ? q[j * B] : 4;
+      qc[kk] = j < qlen ? q(j) : 4;
       eh_h[kk] = 0;
       eh_e[kk] = 0;
     }
@@ -315,7 +223,7 @@ __device__ Extension extend_warp(const uint8_t* __restrict__ q,
   // target rows base .. base + 31, one a lane
   auto load_rows = [&](int base) {
     const int i = base + lane;
-    return i < tlen ? (int)t[i * B] : 4;
+    return i < tlen ? t(i) : 4;
   };
 
   int max_score = h0, max_i = -1, max_j = -1, max_ie = -1, gscore = -1;
@@ -464,8 +372,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int tlen = min(max(tlens[b], 0), tcap);
   const int n_tiles = kTiled ? (qcap + kTile - 1) / kTile : 0;
   const Extension r = extend_warp<K, kTiled>(
-      query + b, target + b, B, qlen, tlen, h0s[b], max_inss[b], max_dels[b],
-      p, lane, n_tiles, sw_smem + (int64_t)warp * n_tiles * kTileBytes);
+      Strided{query + b, B}, Strided{target + b, B}, qlen, tlen, h0s[b],
+      max_inss[b], max_dels[b], p, lane, n_tiles,
+      sw_smem + (int64_t)warp * n_tiles * kTileBytes);
   if (lane == 0) {
     out[0 * B + b] = r.score;
     out[1 * B + b] = r.qle;
@@ -477,48 +386,30 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <int K, bool kTiled>
-int launch_rows(const uint8_t* query, const uint8_t* target,
-                const int32_t* qlen, const int32_t* tlen, const int32_t* h0,
-                const int32_t* max_ins, const int32_t* max_del, int qcap,
-                int tcap, int batch, const Params& p, int32_t* out,
-                void* stream) {
-  int warps = kWarps, smem = 0;
-  if constexpr (kTiled) {
-    const int per_warp = (qcap + kTile - 1) / kTile * kTileBytes;
-    warps = max(1, min(kWarps, kMaxTiles * kTileBytes / per_warp));
-    smem = warps * per_warp;
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          sw_extend_kernel<K, kTiled>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-  }
-  sw_extend_kernel<K, kTiled><<<(batch + warps - 1) / warps, warps * 32, smem,
-                                (cudaStream_t)stream>>>(
-      query, target, qlen, tlen, h0, max_ins, max_del, qcap, tcap, batch, p,
-      out);
-  return (int)cudaGetLastError();
-}
-
 // The fused seed-extension step (acc_genomics_tpu/models/bwa_mem.py
-// `_extend_seeds_fused`), one thread a seed: the suffix-array lookup,
-// the left extension (read[qbeg-1-j] against text[pos-1-j], h0 = the seed
+// `_extend_seeds_fused`), one warp a seed: the suffix-array lookup, the
+// left extension (read[qbeg-1-j] against text[pos-1-j], h0 = the seed
 // length), the right extension (read[qbeg+slen+j] against
 // text[pos+slen+j], h0 = the left score), both with max_ins = max_del =
-// the query length, then the pen_clip resolution.  The thread reads the
-// resident read matrix and text in place and only below each length, so
-// no span is copied and no guard flank is needed.
-__global__ void sw_extend_fused_kernel(
+// the query length and each on fresh eh rows, then the pen_clip
+// resolution (uniform across the warp; lane 0 writes the outputs).  The
+// warp reads the resident read matrix and text in place and only below
+// each length, so no span is copied and no guard flank is needed.
+// read_cap is the read matrix's width: K = ceil(read_cap / 32) columns a
+// lane, tiles past 256.
+template <int K, bool kTiled>
+__global__ void __launch_bounds__(kWarps * 32) sw_extend_fused_kernel(
     const int32_t* __restrict__ sa, const uint8_t* __restrict__ text,
     int text_len, const uint8_t* __restrict__ reads, int read_cap,
     const int32_t* __restrict__ rlens, const int32_t* __restrict__ rows,
     const int32_t* __restrict__ qbegs, const int32_t* __restrict__ slens,
     const int32_t* __restrict__ readids, int n, int flank, Params p,
-    int pen_clip, int32_t* __restrict__ eh, int32_t* __restrict__ out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n) return;
+    int pen_clip, int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char sw_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = (int)(threadIdx.x >> 5);
+  const int b = blockIdx.x * (int)(blockDim.x >> 5) + warp;
+  if (b >= n) return;  // the whole warp
   const int64_t B = n;
   const int pos = sa[rows[b]];
   const int rid = readids[b];
@@ -528,16 +419,17 @@ __global__ void sw_extend_fused_kernel(
   const int lt_len = min(pos, qbeg + flank);
   const int rt_len = min(text_len - pos - slen, rq_len + flank);
   const uint8_t* read = reads + (int64_t)rid * read_cap;
-  int32_t* eh_h = eh + b;
-  int32_t* eh_e = eh + (int64_t)(read_cap + 2) * B + b;
-  const Extension l = extend_one(
+  const int n_tiles = kTiled ? (read_cap + kTile - 1) / kTile : 0;
+  unsigned char* const sm = sw_smem + (int64_t)warp * n_tiles * kTileBytes;
+  const Extension l = extend_warp<K, kTiled>(
       Reversed{read + qbeg - 1}, Reversed{text + pos - 1},
       min(max(lq_len, 0), read_cap), max(lt_len, 0), slen, lq_len, lq_len, p,
-      eh_h, eh_e, B);
-  const Extension r = extend_one(
+      lane, n_tiles, sm);
+  const Extension r = extend_warp<K, kTiled>(
       Forward{read + qbeg + slen}, Forward{text + pos + slen},
       min(max(rq_len, 0), read_cap), max(rt_len, 0), l.score, rq_len, rq_len,
-      p, eh_h, eh_e, B);
+      p, lane, n_tiles, sm);
+  if (lane != 0) return;
   const bool l_clip = l.gscore <= 0 || l.gscore <= l.score - pen_clip;
   const bool r_clip = r.gscore <= 0 || r.gscore <= r.score - pen_clip;
   const int true_l = l_clip ? l.score : l.gscore;
@@ -551,63 +443,124 @@ __global__ void sw_extend_fused_kernel(
   out[7 * B + b] = pos;
 }
 
+// Launches `kernel` over `tasks` warps whose query bucket is qcap columns:
+// four warps a block, or, in the tiled form, as many as the warps' tiles
+// leave room for in shared memory.
+template <bool kTiled, class Kernel, class... Args>
+int launch_warps(Kernel kernel, int qcap, int tasks, void* stream,
+                 Args... args) {
+  int warps = kWarps, smem = 0;
+  if constexpr (kTiled) {
+    const int per_warp = (qcap + kTile - 1) / kTile * kTileBytes;
+    warps = max(1, min(kWarps, kMaxTiles * kTileBytes / per_warp));
+    smem = warps * per_warp;
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+  }
+  kernel<<<(tasks + warps - 1) / warps, warps * 32, smem,
+           (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// K = ceil(qcap / 32) columns a lane in registers up to kMaxK, tiles past
+// that: launch.run<K, kTiled>()
+template <class Launch>
+int dispatch_k(int qcap, const Launch& launch) {
+  switch (min((qcap + 31) / 32, kMaxK + 1)) {
+    case 1: return launch.template run<1, false>();
+    case 2: return launch.template run<2, false>();
+    case 3: return launch.template run<3, false>();
+    case 4: return launch.template run<4, false>();
+    case 5: return launch.template run<5, false>();
+    case 6: return launch.template run<6, false>();
+    case 7: return launch.template run<7, false>();
+    case 8: return launch.template run<8, false>();
+    default: return launch.template run<kMaxK, true>();
+  }
+}
+
+struct ExtendLaunch {
+  const uint8_t* query;
+  const uint8_t* target;
+  const int32_t *qlen, *tlen, *h0, *max_ins, *max_del;
+  int qcap, tcap, batch;
+  Params p;
+  int32_t* out;
+  void* stream;
+  template <int K, bool kTiled>
+  int run() const {
+    return launch_warps<kTiled>(sw_extend_kernel<K, kTiled>, qcap, batch,
+                                stream, query, target, qlen, tlen, h0, max_ins,
+                                max_del, qcap, tcap, batch, p, out);
+  }
+};
+
+struct FusedLaunch {
+  const int32_t* sa;
+  const uint8_t* text;
+  int text_len;
+  const uint8_t* reads;
+  int read_cap;
+  const int32_t *rlens, *rows, *qbeg, *slen, *readid;
+  int n, flank;
+  Params p;
+  int pen_clip;
+  int32_t* out;
+  void* stream;
+  template <int K, bool kTiled>
+  int run() const {
+    return launch_warps<kTiled>(sw_extend_fused_kernel<K, kTiled>, read_cap,
+                                n, stream, sa, text, text_len, reads, read_cap,
+                                rlens, rows, qbeg, slen, readid, n, flank, p,
+                                pen_clip, out);
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
 // query (Q, B) and target (T, B) uint8, Q <= kMaxTiles * kTile; qlen,
-// tlen, h0, max_ins, max_del (B,) int32; out (7, B) int32.  eh is the
-// scratch of the thread-per-task kernel this one replaced, kept so that
-// the C interface did not change; it is not read and may be null.
-// Returns a cudaError_t (0 on success).
+// tlen, h0, max_ins, max_del (B,) int32; out (7, B) int32.  Returns a
+// cudaError_t (0 on success).
 int sw_extend(const uint8_t* query, const uint8_t* target,
               const int32_t* qlen, const int32_t* tlen, const int32_t* h0,
               const int32_t* max_ins, const int32_t* max_del, int qcap,
               int tcap, int batch, int o_del, int e_del, int o_ins,
               int e_ins, int w, int sc_match, int sc_mismatch, int sc_ambig,
-              int32_t* eh, int32_t* out, void* stream) {
-  (void)eh;
+              int32_t* out, void* stream) {
   if (qcap <= 0 || qcap > kMaxTiles * kTile || tcap <= 0 || batch < 0 || w < 0)
     return (int)cudaErrorInvalidValue;
   if (batch == 0) return 0;
   const Params p{o_del, e_del, o_ins, e_ins, w, sc_match, sc_mismatch, sc_ambig};
-  switch (min((qcap + 31) / 32, kMaxK + 1)) {
-#define SW_EXTEND_K(K)                                                     \
-  case K:                                                                  \
-    return launch_rows<K, false>(query, target, qlen, tlen, h0, max_ins,   \
-                                 max_del, qcap, tcap, batch, p, out, stream);
-    SW_EXTEND_K(1) SW_EXTEND_K(2) SW_EXTEND_K(3) SW_EXTEND_K(4)
-    SW_EXTEND_K(5) SW_EXTEND_K(6) SW_EXTEND_K(7) SW_EXTEND_K(8)
-#undef SW_EXTEND_K
-    default:  // past the registers: tiles of kTile columns in shared memory
-      return launch_rows<kMaxK, true>(query, target, qlen, tlen, h0, max_ins,
-                                      max_del, qcap, tcap, batch, p, out,
-                                      stream);
-  }
+  return dispatch_k(qcap, ExtendLaunch{query, target, qlen, tlen, h0, max_ins,
+                                       max_del, qcap, tcap, batch, p, out,
+                                       stream});
 }
 
 // sa (text_len + 1,) int32 suffix array; text (text_len,) uint8; reads
-// (n_reads, read_cap) uint8, read-major; rlens (n_reads,) int32; rows,
-// qbeg, slen, readid (n,) int32 per seed; eh (2, read_cap + 2, n) int32
-// scratch; out (8, n) int32: qBeg, qEndRel, rBeg, rEndRel, score,
-// trueScore, width, pos.  Returns a cudaError_t (0 on success).
+// (n_reads, read_cap) uint8, read-major, read_cap <= kMaxTiles * kTile;
+// rlens (n_reads,) int32; rows, qbeg, slen, readid (n,) int32 per seed;
+// out (8, n) int32: qBeg, qEndRel, rBeg, rEndRel, score, trueScore,
+// width, pos.  Returns a cudaError_t (0 on success).
 int sw_extend_fused(const int32_t* sa, const uint8_t* text, int text_len,
                     const uint8_t* reads, int read_cap, const int32_t* rlens,
                     const int32_t* rows, const int32_t* qbeg,
                     const int32_t* slen, const int32_t* readid, int n,
                     int flank, int o_del, int e_del, int o_ins, int e_ins,
                     int w, int sc_match, int sc_mismatch, int sc_ambig,
-                    int pen_clip, int32_t* eh, int32_t* out, void* stream) {
-  if (read_cap <= 0 || n < 0 || w < 0 || text_len < 0)
+                    int pen_clip, int32_t* out, void* stream) {
+  if (read_cap <= 0 || read_cap > kMaxTiles * kTile || n < 0 || w < 0 ||
+      text_len < 0)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const Params p{o_del, e_del, o_ins, e_ins, w, sc_match, sc_mismatch, sc_ambig};
-  const int threads = 128;
-  sw_extend_fused_kernel<<<(n + threads - 1) / threads, threads, 0,
-                           (cudaStream_t)stream>>>(
-      sa, text, text_len, reads, read_cap, rlens, rows, qbeg, slen, readid, n,
-      flank, p, pen_clip, eh, out);
-  return (int)cudaGetLastError();
+  return dispatch_k(read_cap, FusedLaunch{sa, text, text_len, reads, read_cap,
+                                          rlens, rows, qbeg, slen, readid, n,
+                                          flank, p, pen_clip, out, stream});
 }
 
 }  // extern "C"

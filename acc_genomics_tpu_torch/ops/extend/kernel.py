@@ -19,10 +19,12 @@ text, and the clip resolution, as one (8, N) int32 tensor in
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches csrc/sw_extend.cu on the current stream and adds one to
 ``LAUNCHES["sw_extend"]`` or ``LAUNCHES["sw_extend_fused"]``.  Tensors on
-mixed devices raise.  ``sw_extend_rows`` runs one warp a task with the
-query across the lanes: up to ``REGISTER_QUERY`` columns in registers,
-past that in tiles of as many columns in shared memory, so its bucket
-holds at most ``MAX_QUERY`` query columns on the card.
+mixed devices raise.  Both run one warp a task (a seed: its left, then
+its right extension) with the query across the lanes: up to
+``REGISTER_QUERY`` columns in registers, past that in tiles of as many
+columns in shared memory, so the query bucket (the read width of
+``extend_seeds_fused``) holds at most ``MAX_QUERY`` columns on the
+card.
 """
 
 from __future__ import annotations
@@ -61,11 +63,11 @@ def build_kernels() -> Dict[str, build.BuiltLibrary]:
     built = build.load_library("sw_extend", _SOURCES)
     fn = built.lib.sw_extend
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 7 + [_I] * 11 + [_P] * 3
+        fn.argtypes = [_P] * 7 + [_I] * 11 + [_P] * 2
         fn.restype = ctypes.c_int
         fused = built.lib.sw_extend_fused
         fused.argtypes = ([_P, _P, _I, _P, _I] + [_P] * 5 + [_I] * 11
-                          + [_P] * 3)
+                          + [_P] * 2)
         fused.restype = ctypes.c_int
     return {"sw_extend": built}
 
@@ -243,7 +245,7 @@ def sw_extend_rows(q_tm, t_tm, qlen, tlen, h0, max_ins, max_del,
         err = build_kernels()["sw_extend"].lib.sw_extend(
             *(_ptr(a) for a in (q8, t8, qlen, tlen, h0, max_ins, max_del)),
             qmax, tmax, bsz, p.o_del, p.e_del, p.o_ins, p.e_ins, p.w,
-            p.sc_match, p.sc_mismatch, p.sc_ambig, None, _ptr(out),
+            p.sc_match, p.sc_mismatch, p.sc_ambig, _ptr(out),
             ctypes.c_void_p(stream))
         LAUNCHES["sw_extend"] += 1
     if err != 0:
@@ -357,10 +359,12 @@ def extend_seeds_fused(sa, text, reads, rlens, rows, qbeg, slen, readid, flank: 
     for name, v in (("rows", rows), ("qbeg", qbeg), ("slen", slen), ("readid", readid)):
         check_tensor(v, name, torch.int32, (n,))
     width = reads.shape[1]
+    if width > MAX_QUERY:
+        raise ValueError(f"read width {width} > {MAX_QUERY} columns: a warp's tiles "
+                         "would not fit its shared memory")
     out = torch.empty((len(FUSED_KEYS), n), dtype=torch.int32, device=dev)
     if n == 0:  # nothing to launch
         return out
-    eh = torch.empty((2, width + 2, n), dtype=torch.int32, device=dev)
     p = params
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -368,7 +372,7 @@ def extend_seeds_fused(sa, text, reads, rlens, rows, qbeg, slen, readid, flank: 
             _ptr(sa), _ptr(text), text_len, _ptr(reads), width,
             *(_ptr(a) for a in (rlens, rows, qbeg, slen, readid)),
             n, flank, p.o_del, p.e_del, p.o_ins, p.e_ins, p.w, p.sc_match,
-            p.sc_mismatch, p.sc_ambig, p.pen_clip, _ptr(eh), _ptr(out),
+            p.sc_mismatch, p.sc_ambig, p.pen_clip, _ptr(out),
             ctypes.c_void_p(stream))
         LAUNCHES["sw_extend_fused"] += 1
     if err != 0:

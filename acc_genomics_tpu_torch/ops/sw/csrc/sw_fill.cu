@@ -20,37 +20,67 @@
 // Layouts (the plain version in ops/sw/kernel.py uses the same):
 //   ref (B, R) and alt (B, C) uint8 codes, reflen / altlen (B,) int32;
 //   btrack (B, D, R) int16, D = R + C - 1, diagonal d = i + j: cell (i, j)
-//     sits at [b][i + j][i], so the threads of one diagonal write
+//     sits at [b][i + j][i], so the lanes of one diagonal write
 //     neighbouring addresses;
 //   lastrow (B, C) int32: sw at interior (reflen - 1, j);
 //   altcol (B, R) int32: sw at interior (i, altlen - 1).
 // Only cells inside each pair's reflen x altlen region are written.
 //
-// Design (first, simple and correct):
-//   * one thread block per pair; thread t owns rows t, t + T, ... (RPT
-//     rows per thread, so a 1536-row bucket runs 768 threads of 2 rows);
-//   * a row's horizontal tracker, its previous cell and the diagonal input
-//     (the "up" value it read one diagonal earlier) live in registers;
-//   * sw and the vertical tracker of the previous diagonal live in shared
-//     memory, double-buffered, so one __syncthreads() per diagonal orders
-//     diagonal d's writes before diagonal d + 1's reads;
-//   * each pair runs its own reflen + altlen - 1 diagonals; the TPU's
-//     per-128-lane diagonal counts, row windows and DMA groups are not
-//     needed on independent blocks.
+// Design: a warp takes one pair and runs the shuffle wavefront of the
+// PairHMM forward kernel (pairhmm_forward.cu) over the integer recurrence:
+//   * lane li owns rows 64 c + 2 li and 64 c + 2 li + 1 of chunk c (R = 2
+//     rows a lane); the chunks run in turn, ceil(reflen / 64) of them, each
+//     min(64, rows left) + altlen - 1 steps.  At step s row 2 li + r of
+//     the chunk computes column j = s - 2 li - r, so all 64 cells of a
+//     step lie on diagonal d = 64 c + s and the warp's btrack store is 128
+//     contiguous bytes, one 4-byte store a lane (two 2-byte stores where
+//     an odd bucket leaves them unaligned).  The SW buckets start at 64
+//     rows (config.py SWConfig.seq_buckets), so one segment of 32 lanes is
+//     the only size;
+//   * row r of a lane reads the cell above from row r - 1's previous step
+//     (a register, so the two rows of a step are independent) and row 0
+//     from the lane above, by __shfl_up_sync of its row 1: sw, bgv and gsv
+//     (packed with the column's alt code, which travels down the rows with
+//     it, as the TPU kernel rolls its alt register a row each step).  The
+//     diagonal input is the value received one step earlier; each row's
+//     tracker (bgh, gsh) and sw(i, j - 1) stay in registers.  No step
+//     waits on a barrier;
+//   * lane 0 reads the row above from one shared buffer a warp: per
+//     column (sw, bgv) and gsv | alt << 16 of the previous chunk's bottom
+//     row, made with the matrix's row 0 (the ramps) and the alt codes
+//     before chunk 0.  Lane 31's second row writes column j at step j + 63
+//     and lane 0 of the next chunk reads it at its step j, so the buffer is
+//     updated in place; a __syncwarp at the chunk change orders the two.
+//     Lane 0 loads its column a step ahead, off the step's dependent chain;
+//   * the steps where every cell is inside the pair and off column 0 and
+//     the last column (64 .. altlen - 2 of a full chunk) run without the
+//     edge tests; the gap and cell choices use the max with a predicate of
+//     Hopper's DPX functions (`__vibmax_s32`);
+//   * each pair runs its own trip count from (reflen, altlen); a block
+//     holds four warps (pairs), and a warp past the batch leaves whole.
 //
-// Bound on this card: the latency of one block-wide barrier per diagonal
-// with a few dozen integer instructions between barriers, and the threads
-// that idle on the triangular edges of the wavefront.  The btrack stores
-// (2 bytes a cell) are coalesced and far below the memory bandwidth.
+// Bound on this card: the integer pipes, which run at half the fp32 rate.
+// On the SW bench batch (4,096 pairs a launch, 31 warps an SM) the time
+// grows with the warps an SM from two a scheduler up, and stays the same
+// with the btrack stores, the shuffles or the shared-buffer traffic taken
+// out (tools/sw_fill_ablation.py): the compares, selects and adds of the
+// cells set it.  Two rows a lane share a step's shuffles, buffer traffic
+// and store, and halve the steps; the edge steps (the triangles at each
+// chunk's start and end) cost more than interior ones.  Four rows a lane
+// need 94 registers and no longer fit a launch in one wave.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace {
 
 constexpr int kMaxRows = 2048;
 constexpr int kMaxCols = 2048;
-constexpr int kMaxThreads = 1024;
+constexpr int kWarps = 4;  // pairs a block
+constexpr int R = 2;       // rows a lane
+constexpr int kChunk = 32 * R;  // rows a chunk
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int32_t kLowInit = -(1 << 30);        // reference.LOW_INIT
 constexpr int32_t kMinCutoff = -100000000;      // reference.MATRIX_MIN_CUTOFF
 
@@ -63,104 +93,163 @@ __device__ __forceinline__ int32_t ramp(int jm, bool indel, const Weights& w) {
   return (indel && jm > 0) ? w.open + (jm - 1) * w.extend : 0;
 }
 
-template <int RPT>
-__global__ void __launch_bounds__(kMaxThreads)
+// dynamic shared memory a warp: (sw, bgv) and gsv | alt << 16 of the row
+// above, for cols + kChunk columns (lane 0 loads a step ahead, past the
+// pair's last column too)
+__host__ __device__ constexpr int warp_bytes(int cols) {
+  return (cols + kChunk) * (int)(sizeof(int2) + sizeof(uint32_t));
+}
+
+// kAligned: an even bucket of rows, so a lane's two codes of a step are one
+// aligned 4-byte word
+template <bool kAligned>
+__global__ void __launch_bounds__(kWarps * 32)
     sw_fill_kernel(const uint8_t* __restrict__ ref,
                    const uint8_t* __restrict__ alt,
                    const int32_t* __restrict__ reflen,
                    const int32_t* __restrict__ altlen, int rows, int cols,
-                   bool indel, Weights w, int16_t* __restrict__ btrack,
-                   int32_t* __restrict__ lastrow,
+                   int batch, bool indel, Weights w,
+                   int16_t* __restrict__ btrack, int32_t* __restrict__ lastrow,
                    int32_t* __restrict__ altcol) {
-  extern __shared__ int32_t smem[];
-  int32_t* s_sw = smem;                                   // [2][rows]
-  int32_t* s_bgv = smem + 2 * rows;                       // [2][rows]
-  int16_t* s_gsv = reinterpret_cast<int16_t*>(smem + 4 * rows);  // [2][rows]
-  uint8_t* s_alt = reinterpret_cast<uint8_t*>(s_gsv + 2 * rows);  // [cols]
-
-  const int b = blockIdx.x;
-  const int T = blockDim.x;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int li = threadIdx.x & 31;
+  const int warp = (int)(threadIdx.x >> 5);
+  const int b = blockIdx.x * kWarps + warp;
+  if (b >= batch) return;  // the whole warp
   const int rl = min(reflen[b], rows);
   const int al = min(altlen[b], cols);
   if (rl <= 0 || al <= 0) return;
 
-  for (int j = threadIdx.x; j < al; j += T)
-    s_alt[j] = alt[(int64_t)b * cols + j];
-  int32_t r_left[RPT], r_diag[RPT], r_bgh[RPT], r_gsh[RPT];
-  uint8_t r_ref[RPT];
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const int i = threadIdx.x + k * T;
-    r_ref[k] = i < rl ? ref[(int64_t)b * rows + i] : 0;
-    r_left[k] = 0;
-    r_diag[k] = 0;
-    r_bgh[k] = kLowInit;
-    r_gsh[k] = 0;
+  int2* const above = (int2*)(smem + (int64_t)warp * warp_bytes(cols));
+  uint32_t* const above_ga = (uint32_t*)(above + cols + kChunk);
+  // the matrix's row 0 above chunk 0, with the alt codes
+  for (int j = li; j < al; j += 32) {
+    above[j] = make_int2(ramp(j + 1, indel, w), kLowInit);
+    above_ga[j] = (uint32_t)alt[(int64_t)b * cols + j] << 16;
   }
-  __syncthreads();
+  __syncwarp();
 
-  const int n_diag = rows + cols - 1;
-  int16_t* bt = btrack + (int64_t)b * n_diag * rows;
-  const int last = rl + al - 1;
-  for (int d = 0; d < last; ++d) {
-    const int cur = (d & 1) * rows, prv = rows - cur;
+  const int64_t n_diag = rows + cols - 1;
+  int16_t* const bt = btrack + (int64_t)b * n_diag * rows;
+  int32_t* const last_row = lastrow + (int64_t)b * cols;
+  int32_t* const alt_col = altcol + (int64_t)b * rows;
+  const uint8_t* const ref_b = ref + (int64_t)b * rows;
+  const int n_chunks = (rl + kChunk - 1) / kChunk;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int i0 = c * kChunk + R * li;  // the lane's first row
+    // per row r of the lane: its code, column-0 ramps, the cell at the
+    // previous step (sw, bgv, gsv | alt << 16), the cell above received
+    // at the previous step, and the row's gap tracker
+    int ref_r[R], sw1[R], bgv1[R], pu[R], bgh[R], gsh[R];
+    uint32_t ga1[R];
 #pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      const int i = threadIdx.x + k * T;
-      const int j = d - i;
-      if (i >= rl || j < 0 || j >= al) continue;
-      // row i - 1 at diagonal d - 1: cell (i - 1, j), always filled
-      int32_t up, bgv_in, gsv_in;
-      if (i == 0) {
-        up = ramp(j + 1, indel, w);
-        bgv_in = kLowInit;
-        gsv_in = 0;
-      } else {
-        up = s_sw[prv + i - 1];
-        bgv_in = s_bgv[prv + i - 1];
-        gsv_in = s_gsv[prv + i - 1];
-      }
-      // own row at diagonal d - 1: cell (i, j - 1), or column 0
-      int32_t diag_src, left;
-      if (j == 0) {
-        diag_src = ramp(i, indel, w);     // matrix sw[i][0]
-        left = ramp(i + 1, indel, w);     // matrix sw[i + 1][0]
-      } else {
-        diag_src = r_diag[k];
-        left = r_left[k];
-      }
-      const int32_t step_diag =
-          diag_src + (s_alt[j] == r_ref[k] ? w.match : w.mismatch);
-
-      const int32_t gap_v = up + w.open, ext_v = bgv_in + w.extend;
-      const bool take_v = gap_v > ext_v;  // strict: a tie keeps extending
-      const int32_t bgv = take_v ? gap_v : ext_v;
-      const int32_t gsv = take_v ? 1 : gsv_in + 1;
-
-      const int32_t gap_h = left + w.open, ext_h = r_bgh[k] + w.extend;
-      const bool take_h = gap_h > ext_h;
-      const int32_t bgh = take_h ? gap_h : ext_h;
-      const int32_t gsh = take_h ? 1 : r_gsh[k] + 1;
-      r_bgh[k] = bgh;
-      r_gsh[k] = gsh;
-
-      // priority diag >= right >= down
-      const bool use_diag = step_diag >= bgv && step_diag >= bgh;
-      const bool use_right = !use_diag && bgh >= bgv;
-      const int32_t val = use_diag ? step_diag : (use_right ? bgh : bgv);
-      const int32_t sw = max(kMinCutoff, val);
-      const int32_t code = use_diag ? 0 : (use_right ? -gsh : gsv);
-
-      s_sw[cur + i] = sw;
-      s_bgv[cur + i] = bgv;
-      s_gsv[cur + i] = (int16_t)gsv;
-      r_diag[k] = up;  // the diagonal input of cell (i, j + 1)
-      r_left[k] = sw;
-      bt[(int64_t)d * rows + i] = (int16_t)code;
-      if (i == rl - 1) lastrow[(int64_t)b * cols + j] = sw;
-      if (j == al - 1) altcol[(int64_t)b * rows + i] = sw;
+    for (int r = 0; r < R; ++r) {
+      ref_r[r] = i0 + r < rl ? ref_b[i0 + r] : 0;
+      sw1[r] = 0;
+      bgv1[r] = kLowInit;
+      ga1[r] = 0;
+      pu[r] = 0;
+      bgh[r] = kLowInit;
+      gsh[r] = 0;
     }
-    __syncthreads();
+    const int last_r = rl - 1 - i0;  // the lane's row that is the pair's last
+    const bool is_bottom = li == 31 && i0 + R - 1 < rl;  // writes the buffer
+    int2 top = above[0];
+    uint32_t top_ga = above_ga[0];
+    int16_t* btp = bt + (int64_t)(c * kChunk) * rows + i0;
+
+    // step s: row i0 + r at column s - R li - r, every cell of the warp on
+    // diagonal c kChunk + s.  INTERIOR: every cell lies inside the pair
+    // with its column in [1, altlen - 1), so no edge is tested
+    auto step = [&](auto interior, int s) {
+      constexpr bool INTERIOR = decltype(interior)::value;
+      // row 0's inputs from the lane above (its last row at the previous
+      // step), or for lane 0 from the buffer
+      int32_t up0 = __shfl_up_sync(kFull, sw1[R - 1], 1);
+      int32_t bgv0 = __shfl_up_sync(kFull, bgv1[R - 1], 1);
+      uint32_t ga0 = __shfl_up_sync(kFull, ga1[R - 1], 1);
+      if (li == 0) {
+        up0 = top.x;
+        bgv0 = top.y;
+        ga0 = top_ga;
+        top = above[s + 1];  // before the bottom lane's store of this step
+        top_ga = above_ga[s + 1];
+      }
+      int32_t code[R], sw_out[R];
+      // rows in descending order: row r reads row r - 1's previous step
+#pragma unroll
+      for (int r = R - 1; r >= 0; --r) {
+        const int j = s - R * li - r;
+        const int32_t up = r == 0 ? up0 : sw1[r - 1];
+        const int32_t bgv_in = r == 0 ? bgv0 : bgv1[r - 1];
+        const uint32_t ga = r == 0 ? ga0 : ga1[r - 1];
+        int32_t diag_src = pu[r], left = sw1[r];
+        pu[r] = up;
+        if (!INTERIOR && j == 0) {  // column 0 of the matrix; the row's
+          diag_src = ramp(i0 + r, indel, w);  // tracker starts
+          left = ramp(i0 + r + 1, indel, w);
+          bgh[r] = kLowInit;
+          gsh[r] = 0;
+        }
+        const int alt_j = (int)(ga >> 16);
+        const int32_t step_diag =
+            diag_src + (alt_j == ref_r[r] ? w.match : w.mismatch);
+        // Hopper's DPX max with a predicate: the gap trackers take the
+        // open only when it is strictly greater (a tie keeps extending),
+        // and the priority diag >= right >= down picks the cell
+        bool ext_v, ext_h, right, diag;
+        const int32_t bgv = __vibmax_s32(bgv_in + w.extend, up + w.open, &ext_v);
+        const int32_t gsv = ext_v ? (int32_t)(ga & 0xffffu) + 1 : 1;
+        bgh[r] = __vibmax_s32(bgh[r] + w.extend, left + w.open, &ext_h);
+        gsh[r] = ext_h ? gsh[r] + 1 : 1;
+        const int32_t sw = max(
+            kMinCutoff, __vibmax_s32(step_diag, __vibmax_s32(bgh[r], bgv, &right), &diag));
+        code[r] = diag ? 0 : (right ? -gsh[r] : gsv);
+        sw_out[r] = sw;
+        sw1[r] = sw;
+        bgv1[r] = bgv;
+        ga1[r] = ((uint32_t)alt_j << 16) | ((uint32_t)gsv & 0xffffu);
+        if (!INTERIOR) {
+          if (i0 + r < rl && j >= 0 && j < al) {
+            btp[r] = (int16_t)code[r];
+            if (j == al - 1) alt_col[i0 + r] = sw;
+          }
+        }
+      }
+      if (INTERIOR) {  // both rows' codes in one store where aligned
+        if constexpr (kAligned && R == 2) {
+          *(uint32_t*)btp = (uint16_t)code[0] | ((uint32_t)(uint16_t)code[R - 1] << 16);
+        } else {
+#pragma unroll
+          for (int r = 0; r < R; ++r) btp[r] = (int16_t)code[r];
+        }
+      }
+      // the pair's last row and the bottom row of the chunk
+      if (last_r >= 0 && last_r < R) {
+        const int j = s - R * li - last_r;
+        if (INTERIOR || (j >= 0 && j < al)) last_row[j] = sw_out[last_r];
+      }
+      if (is_bottom) {
+        const int j = s - R * 31 - (R - 1);
+        if (INTERIOR || (j >= 0 && j < al)) {
+          above[j] = make_int2(sw1[R - 1], bgv1[R - 1]);
+          above_ga[j] = ga1[R - 1];
+        }
+      }
+      btp += rows;
+    };
+
+    // a full chunk runs its steps kChunk .. altlen - 2 without the edge
+    // tests
+    const int n_rows = min(kChunk, rl - c * kChunk);
+    const int steps = n_rows + al - 1;
+    const int in_hi = n_rows == kChunk ? al - 1 : 0;
+    int s = 0;
+    for (; s < min(kChunk, steps); ++s) step(std::false_type{}, s);
+#pragma unroll 2
+    for (; s < in_hi; ++s) step(std::true_type{}, s);
+    for (; s < steps; ++s) step(std::false_type{}, s);
+    __syncwarp();  // the bottom row is in before the next chunk reads it
   }
 }
 
@@ -175,23 +264,20 @@ int sw_fill(const uint8_t* ref, const uint8_t* alt, const int32_t* reflen,
             int indel_init, int w_match, int w_mismatch, int w_open,
             int w_extend, int16_t* btrack, int32_t* lastrow,
             int32_t* altcol, void* stream) {
-  if (rows <= 0 || rows > kMaxRows || cols <= 0 || cols > kMaxCols)
+  if (rows <= 0 || rows > kMaxRows || cols <= 0 || cols > kMaxCols || batch < 0)
     return (int)cudaErrorInvalidValue;
   if (batch == 0) return 0;
   const Weights w{w_match, w_mismatch, w_open, w_extend};
-  const size_t shmem = (size_t)rows * (4 * sizeof(int32_t) + 2 * sizeof(int16_t)) + cols;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (rows <= kMaxThreads) {
-    const int threads = (rows + 31) / 32 * 32;
-    sw_fill_kernel<1><<<batch, threads, shmem, s>>>(
-        ref, alt, reflen, altlen, rows, cols, indel_init != 0, w, btrack,
-        lastrow, altcol);
-  } else {
-    const int threads = ((rows + 1) / 2 + 31) / 32 * 32;
-    sw_fill_kernel<2><<<batch, threads, shmem, s>>>(
-        ref, alt, reflen, altlen, rows, cols, indel_init != 0, w, btrack,
-        lastrow, altcol);
+  auto kernel = rows % 2 == 0 ? sw_fill_kernel<true> : sw_fill_kernel<false>;
+  const int smem = kWarps * warp_bytes(cols);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
   }
+  kernel<<<(batch + kWarps - 1) / kWarps, kWarps * 32, smem, (cudaStream_t)stream>>>(
+      ref, alt, reflen, altlen, rows, cols, batch, indel_init != 0, w, btrack, lastrow,
+      altcol);
   return (int)cudaGetLastError();
 }
 

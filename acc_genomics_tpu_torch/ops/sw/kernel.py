@@ -50,7 +50,7 @@ from acc_genomics_tpu_torch.ops.sw.reference import (
 )
 
 SHIP_ELEMS = 48  # element slots of the packed walk buffer (walker.py)
-MAX_ROWS = 2048  # two rows per thread at most, 1024 threads per pair
+MAX_ROWS = 2048  # the fill kernel's bucket bounds (csrc/sw_fill.cu)
 MAX_COLS = 2048
 
 # kernel launches per wrapper (CUDA tensors only); callers reset with clear()

@@ -1,8 +1,9 @@
 """The inputs the kernels are checked and timed at, shared by
-``chip_smoke.py``, ``tools/kernel_ab.py`` and the card's tests: the
-extension kernel's batches and edges, ExtendEngine's seeds, the PairHMM
-kernel's benchmark pairs, engine batches and edge packs, all made from
-numpy seeds, and a recorder of a wrapper's calls."""
+``chip_smoke.py``, ``tools/kernel_ab.py`` and the tests: the SW fill's
+edge batches, the extension kernel's batches and edges, the fused seed
+extension's edge batches, ExtendEngine's seeds, the PairHMM kernel's
+benchmark pairs, engine batches and edge packs, all made from numpy
+seeds, and a recorder of a wrapper's calls."""
 
 from __future__ import annotations
 
@@ -157,6 +158,198 @@ def extend_batches(dev):
        params=ExtendParams(w=16))
     on("Q 1536", *_edge_tasks(rng, 128, 1536, 1600, [1536, 1400, 1300, 257]))
     on("Q 25600", *_edge_tasks(rng, 8, 25_600, 600, [25_600, 300, 20_000, 1]))
+    return out
+
+
+SW_BENCH_PAIRS = 8192  # bench.py bench_sw: one ref of 286 vs 8192 alts
+SMEM_GENOME = 100_000_000  # bases: drivers/smem_driver.py's genome scale
+SMEM_READS = 65536  # bench_smem's lane count, reads of 101
+BWA_READS = 2048  # bench_bwamem's reads (max_occ 4, flank 100)
+
+
+def sw_bench_chunks(dev):
+    """bench.py bench_sw's batch (seed 0, one ref of 286 vs 8192 alts) as
+    SWEngine cuts it: (ref, alts, [(ref (B, R), alt (B, C), reflen, altlen)
+    a chunk]) in the 320 x 320 bucket, chunks of ``chunk_pairs``."""
+    from acc_genomics_tpu_torch.config import SWConfig
+    from acc_genomics_tpu_torch.engine.sw_engine import chunk_pairs
+    from acc_genomics_tpu_torch.io.synth import gen_sw_batch
+    from acc_genomics_tpu_torch.ops.sw.batch import pack_planes
+
+    ref, alts = gen_sw_batch(np.random.default_rng(0), SW_BENCH_PAIRS, ref_len=286)
+    cfg = SWConfig()
+    bucket = lambda n: next(b for b in cfg.seq_buckets if b >= n)
+    rows, cols = bucket(len(ref)), bucket(max(len(a) for a in alts))
+    seg = chunk_pairs(rows, cols, cfg.max_batch)
+    chunks = []
+    for lo in range(0, len(alts), seg):
+        part = alts[lo:lo + seg]
+        ref_p = np.empty((len(part), rows), np.uint8)
+        alt_p = np.empty((len(part), cols), np.uint8)
+        rl = pack_planes([ref] * len(part), rows, ref_p)
+        al = pack_planes(part, cols, alt_p)
+        chunks.append(tuple(torch.from_numpy(x).to(dev) for x in (ref_p, alt_p, rl, al)))
+    return ref, alts, chunks
+
+
+def bwa_index_and_reads():
+    """chip_smoke.py phases 12-14's genome (gen_reference_with_repeats of
+    SMEM_GENOME bases, seed 0), its FMIndex and the BWA_READS reads of 101
+    drawn after the SMEM_READS of phase 12: (genome, fm, bwa_reads).  The
+    index build takes about a minute (the native suffix array)."""
+    from acc_genomics_tpu_torch.io.synth import gen_reference_with_repeats, gen_smem_reads
+    from acc_genomics_tpu_torch.ops.smem.index import FMIndex
+
+    rng = np.random.default_rng(0)
+    genome = gen_reference_with_repeats(rng, SMEM_GENOME)
+    fm = FMIndex.build(genome)
+    gen_smem_reads(rng, genome, SMEM_READS, read_len=101)
+    return genome, fm, gen_smem_reads(rng, genome, BWA_READS, read_len=101)
+
+
+def pipeline_fused_args(dev):
+    """The arguments of the one ``extend_seeds_fused`` launch of a
+    ``BwaMemDevicePipeline`` call (max_occ 4, flank 100) on
+    ``bwa_index_and_reads()``: chip_smoke.py phase 14's seeds."""
+    import acc_genomics_tpu_torch.models.bwa_mem as bwa_module
+    from acc_genomics_tpu_torch.build import ensure_native
+    from acc_genomics_tpu_torch.engine.genomics_engine import GenomicsEngine
+    from acc_genomics_tpu_torch.models import BwaMemDevicePipeline
+
+    ensure_native()
+    _, fm, reads = bwa_index_and_reads()
+    eng = GenomicsEngine(device=dev)
+    eng.set_index(fm)
+    calls = []
+    with capture_calls(bwa_module, "extend_seeds_fused", calls):
+        BwaMemDevicePipeline(eng, max_occ=4, flank=100).map_reads_arrays(reads)
+    return calls[0]
+
+
+def _sw_pair(rng, rlen: int, alen: int):
+    """A ref of rlen random codes and an alt of alen: the ref with 10%
+    substitutions, a 3-base deletion and a 2-base insertion, repeated or
+    cut to alen."""
+    ref = rng.integers(0, 4, rlen).astype(np.uint8)
+    alt = ref.copy()
+    mut = rng.random(rlen) < 0.10
+    alt[mut] = (alt[mut] + rng.integers(1, 4, mut.sum())) % 4
+    if rlen > 20:
+        alt = np.concatenate([alt[:8], alt[11:15], rng.integers(0, 4, 2), alt[15:]])
+    return ref, np.resize(alt, alen).astype(np.uint8)
+
+
+def sw_fill_batches(dev, big: bool = True):
+    """The SW fill's edges as (name, ref (B, R), alt (B, C), reflen, altlen)
+    on ``dev``: reflen 1, 31, 32, 33, 63, 64, 65 and 97 (one and two lanes'
+    rows, one and two chunks of 64 rows, full and with one row over, and
+    the whole of an odd bucket, whose diagonals leave two codes unaligned)
+    against altlen 1 and the bucket's 96 columns in a 97 x 96 bucket;
+    batches of 1, 5 and 13 pairs (a block holds four) of mixed lengths in
+    a 64 x 64 bucket; with ``big``, a bucket of 1536 rows filled by reflen
+    1536 against altlen 1 and 1536, and 1535 against 1000."""
+    from acc_genomics_tpu_torch.ops.sw.batch import pack_planes
+
+    rng = np.random.default_rng(9)
+    out = []
+
+    def on(name, pairs, rows, cols):
+        ref = np.empty((len(pairs), rows), np.uint8)
+        alt = np.empty((len(pairs), cols), np.uint8)
+        rl = pack_planes([r for r, _ in pairs], rows, ref)
+        al = pack_planes([a for _, a in pairs], cols, alt)
+        out.append((name, *(torch.from_numpy(x).to(dev) for x in (ref, alt, rl, al))))
+
+    on("reflen 1-97 x altlen 1/96, 97 x 96",
+       [_sw_pair(rng, r, a) for r in (1, 31, 32, 33, 63, 64, 65, 97) for a in (1, 96)],
+       97, 96)
+    for n in (1, 5, 13):
+        on(f"{n} pairs, 64 x 64",
+           [_sw_pair(rng, int(rng.integers(1, 65)), int(rng.integers(1, 65)))
+            for _ in range(n)], 64, 64)
+    if big:
+        on("reflen 1536 x altlen 1/1536, 1535 x 1000, 1536 x 1536",
+           [_sw_pair(rng, 1536, 1), _sw_pair(rng, 1536, 1536), _sw_pair(rng, 1535, 1000)],
+           1536, 1536)
+    return out
+
+
+def _fused_case(rng, n, width, qbegs, text_len=20_000, ends=False, gap=0):
+    """Seeds planted in a random text: read b spans text[pos - qbeg:] (95%
+    identity outside the seed, an N in every fifth read) with its seed of
+    slen 15-24 bases (fewer where the width leaves less) at qbeg, which
+    cycles through ``qbegs``; rlen up to the width; with ``ends``, every
+    fourth seed at the text's first position and every fourth at its last;
+    with ``gap``, that many bases inserted into (even seeds) or deleted
+    from (odd seeds) the read 10 bases past the seed.  Returns (text,
+    reads (n, width), rlens, pos, qbeg, slen)."""
+    text = rng.integers(0, 4, text_len).astype(np.uint8)
+    reads = np.full((n, width), 4, np.uint8)
+    rlens = np.zeros(n, np.int32)
+    pos, qbeg, slen = (np.zeros(n, np.int32) for _ in range(3))
+    for b in range(n):
+        qb = min(int(qbegs[b % len(qbegs)]), width - 1)
+        sl = max(1, min(int(rng.integers(15, 25)), width - qb))
+        p = int(rng.integers(0, text_len - sl + 1))
+        if ends and b % 4 == 0:
+            p = 0
+        elif ends and b % 4 == 1:
+            p = text_len - sl
+        k = np.arange(p - qb, p - qb + width + gap)
+        read = np.where((k >= 0) & (k < text_len), text[np.clip(k, 0, text_len - 1)],
+                        rng.integers(0, 4, len(k))).astype(np.uint8)
+        mut = rng.random(len(read)) < 0.05
+        mut[qb: qb + sl] = False
+        read[mut] = (read[mut] + rng.integers(1, 4, mut.sum())) % 4
+        at = qb + sl + 10
+        if gap and b % 2 == 0:
+            read = np.concatenate([read[:at], rng.integers(0, 4, gap).astype(np.uint8),
+                                   read[at:]])
+        elif gap:
+            read = np.concatenate([read[:at], read[at + gap:]])
+        if b % 5 == 0:
+            read[int(rng.integers(0, len(read)))] = 4
+        rl = int(rng.integers(qb + sl, width + 1))
+        reads[b, :rl] = read[:rl]
+        reads[b, qb: qb + sl] = text[p: p + sl]  # the seed matches exactly
+        rlens[b], pos[b], qbeg[b], slen[b] = rl, p, qb, sl
+    return text, reads, rlens, pos, qbeg, slen
+
+
+def fused_batches(dev, n: int = 256):
+    """The fused seed extension's edges as dicts (name and the arguments
+    of ``extend_seeds_fused``: sa, text, reads, rlens, rows, qbeg, slen,
+    readid, flank, params) on ``dev``, n seeds each (one read a seed; the
+    suffix array maps seed b's row b to its position): left queries of
+    length 0, 1, 31, 32 and 33 at width 256 (one, two and eight columns a
+    lane at the boundaries), reads of width 32 and 33 (one and two
+    columns a lane), seeds at the text's first and last positions with
+    flank 100 and 300, a batch where round 2 runs (band 8, 7-base gaps
+    past the seed) and reads of width 300 (the shared-memory tiles)."""
+    rng = np.random.default_rng(10)
+    out = []
+
+    def on(name, case, flank=100, params=ExtendParams()):
+        text, reads, rlens, pos, qbeg, slen = case
+        m = len(pos)
+        sa = np.zeros(len(text) + 1, np.int32)
+        sa[:m] = pos
+        t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        idx = np.arange(m, dtype=np.int32)
+        out.append(dict(name=name, sa=t(sa), text=t(text), reads=t(reads), rlens=t(rlens),
+                        rows=t(idx), qbeg=t(qbeg), slen=t(slen), readid=t(idx),
+                        flank=flank, params=params))
+
+    on("left 0/1/31/32/33, W 256", _fused_case(rng, n, 256, (0, 1, 31, 32, 33)))
+    on("W 32", _fused_case(rng, n, 32, (0, 1, 10, 31)))
+    on("W 33", _fused_case(rng, n, 33, (0, 1, 31, 32)))
+    on("text ends, flank 100", _fused_case(rng, n, 128, (0, 5, 40, 90), text_len=3000,
+                                           ends=True))
+    on("text ends, flank 300", _fused_case(rng, n, 128, (0, 5, 40, 90), text_len=3000,
+                                           ends=True), flank=300)
+    on("round 2, band 8", _fused_case(rng, n, 128, (20, 40, 60), gap=7),
+       params=ExtendParams(w=8))
+    on("W 300 (tiles)", _fused_case(rng, max(n // 4, 1), 300, (0, 33, 150, 260)))
     return out
 
 

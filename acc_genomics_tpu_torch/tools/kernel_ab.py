@@ -3,16 +3,17 @@ in turns on one card at the same inputs.
 
     python -m acc_genomics_tpu_torch.tools.kernel_ab OLD_DIR [KERNEL ...]
 
-KERNEL is ``extend``, ``pairhmm`` or ``band_superstep`` (the default:
-all three).  OLD_DIR holds the earlier commit's sources of the kernels named
-(``git show <commit>:<path>`` of ``acc_genomics_tpu_torch/ops/.../csrc/``),
-built with the package's nvcc flags into its build directory:
+KERNEL is ``extend``, ``pairhmm``, ``band_superstep``, ``sw_fill`` or
+``fused`` (the default: all five).  OLD_DIR holds the earlier commit's
+sources of the kernels named (``git show <commit>:<path>`` of
+``acc_genomics_tpu_torch/ops/.../csrc/``), built with the package's nvcc
+flags into its build directory:
 
-  extend   ``sw_extend.cu`` (the same C interface ``sw_extend``; the old
-           kernel reads its eh scratch): the bench batch of
-           ``tools/bench_shapes.py``, ExtendEngine's own launches on its
-           4096 bench seeds, and the batch of gaps at column 256 in a
-           520-column bucket (the new kernel's shared-memory tiles);
+  extend   ``sw_extend.cu`` (C entry point ``sw_extend``; the old
+           interface takes an eh scratch, which the new one dropped): the
+           bench batch of ``tools/bench_shapes.py``, ExtendEngine's own
+           launches on its 4096 bench seeds, and the batch of gaps at
+           column 256 in a 520-column bucket (the shared-memory tiles);
   pairhmm  ``pairhmm_forward.cu`` and the ``pairhmm_common.cuh`` it
            includes (the same C interface ``pairhmm_forward_quals``,
            arith): bench.py's 8192 pairs in their four row buckets and the
@@ -21,14 +22,20 @@ built with the package's nvcc flags into its build directory:
            the same C interface ``pairhmm_band_superstep``: the middle
            superstep of chip_smoke.py phase 15's SP pipeline at C = 8, 16
            and 32, every output bit for bit;
+  sw_fill  ``sw_fill.cu`` (the same C interface ``sw_fill``): the SW bench
+           batch's two 4,096-pair chunks (320 x 320) without and with the
+           indel ramps, every output bit for bit;
+  fused    ``sw_extend.cu`` (C entry point ``sw_extend_fused``; the old
+           interface takes an eh scratch): chip_smoke.py phase 14's seeds
+           on its 100 Mbp index (built first, about a minute), every output
+           bit for bit.
 
-Both builds are called through their C entry points with the same
-prepared arguments, so no wrapper's host work is timed on one side only
-(``extend`` and ``pairhmm``; ``band_superstep`` runs both through the
+Every mode but ``band_superstep`` calls both builds through their C entry
+points with the same prepared arguments, so no wrapper's host work is
+timed on one side only (``band_superstep`` runs both through the
 wrapper).  Each pair runs old, new, new, old (CUDA events, median of 7
-each); the
-outputs must agree (the extension and the band superstep bit for bit,
-PairHMM within rtol 1e-5).  Registers and spills of both builds (ptxas) are
+each); the outputs must agree (PairHMM within rtol 1e-5, every other
+kernel bit for bit).  Registers and spills of both builds (ptxas) are
 printed.  The last line of standard output is one JSON object with every
 time.
 """
@@ -115,7 +122,7 @@ def extend_ab(old_dir: str, dev) -> dict:
 
     built = old_library(old_dir, "sw_extend")
     fn = built.lib.sw_extend
-    fn.argtypes = [_P] * 7 + [_I] * 11 + [_P] * 3
+    fn.argtypes = [_P] * 7 + [_I] * 11 + [_P] * 3  # the old interface's eh scratch
     fn.restype = ctypes.c_int
     new_built = EK.build_kernels()["sw_extend"]
     new_fn = new_built.lib.sw_extend
@@ -140,27 +147,119 @@ def extend_ab(old_dir: str, dev) -> dict:
             prepared.append((q.to(torch.uint8).contiguous(), t.to(torch.uint8).contiguous(),
                              ql, tl, h0, mi, md, p, eh, res))
 
-        def with_lib(f):
+        def with_lib(f, eh: bool):
             def go():
-                for q, t, ql, tl, h0, mi, md, p, eh, res in prepared:
+                for q, t, ql, tl, h0, mi, md, p, scratch, res in prepared:
                     err = f(*(_ptr(x) for x in (q, t, ql, tl, h0, mi, md)), q.shape[0],
                             t.shape[0], q.shape[1], p.o_del, p.e_del, p.o_ins, p.e_ins, p.w,
-                            p.sc_match, p.sc_mismatch, p.sc_ambig, _ptr(eh), _ptr(res),
-                            stream)
+                            p.sc_match, p.sc_mismatch, p.sc_ambig,
+                            *([_ptr(scratch)] if eh else []), _ptr(res), stream)
                     if err:
                         raise RuntimeError(f"extension kernel: error {err}")
             return go
 
-        with_lib(fn)()
+        with_lib(fn, True)()
         got = [EK.sw_extend_rows(*x[:8]) for x in prepared]  # the wrapper's result
         torch.cuda.synchronize()
         if not all(torch.equal(g, x[9]) for g, x in zip(got, prepared)):
             raise AssertionError(f"extend, {name}: old and new kernels differ")
         tasks = sum(x[0].shape[1] for x in prepared)
         out[name] = {"launches": len(prepared), "tasks": tasks,
-                     **in_turns(with_lib(fn), with_lib(new_fn))}
+                     **in_turns(with_lib(fn, True), with_lib(new_fn, False))}
         print(f"extend, {name} ({len(prepared)} launches, {tasks} tasks): {out[name]}",
               flush=True)
+    return out
+
+
+def sw_fill_ab(old_dir: str, dev) -> dict:
+    """The SW bench batch's two 4,096-pair chunks (320 x 320), strategy 0
+    and 1 (the ramps): every output bit for bit (both builds write only
+    each pair's region of zeroed outputs)."""
+    from acc_genomics_tpu_torch.ops.sw import kernel as SK
+    from acc_genomics_tpu_torch.tools.bench_shapes import sw_bench_chunks
+
+    built = old_library(old_dir, "sw_fill")
+    new_built = SK.build_kernels()["sw_fill"]
+    fn, new_fn = built.lib.sw_fill, new_built.lib.sw_fill
+    fn.argtypes = new_fn.argtypes
+    fn.restype = ctypes.c_int
+    regs = print_ptxas("sw_fill", built, new_built)
+    _, _, chunks = sw_bench_chunks(dev)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    p = [int(x) for x in SK.DEFAULT_SW_PARAMS]
+
+    def outputs():
+        return [(torch.zeros((r.shape[0], r.shape[1] + a.shape[1] - 1, r.shape[1]),
+                             dtype=torch.int16, device=dev),
+                 torch.zeros(a.shape, dtype=torch.int32, device=dev),
+                 torch.zeros(r.shape, dtype=torch.int32, device=dev)) for r, a, _, _ in chunks]
+
+    def with_lib(f, outs, indel: int):
+        def go():
+            for (r, a, rl, al), o in zip(chunks, outs):
+                err = f(*(_ptr(x) for x in (r, a, rl, al)), r.shape[1], a.shape[1], r.shape[0],
+                        indel, *p, *(_ptr(x) for x in o), stream)
+                if err:
+                    raise RuntimeError(f"SW fill kernel: error {err}")
+        return go
+
+    out = {"ptxas": regs, "pairs": [c[0].shape[0] for c in chunks],
+           "cells": sum(int((c[2].long() * c[3].long()).sum()) for c in chunks)}
+    for indel in (0, 1):
+        old_out, new_out = outputs(), outputs()
+        with_lib(fn, old_out, indel)()
+        with_lib(new_fn, new_out, indel)()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for o, n in zip(old_out, new_out) for x, y in zip(o, n)):
+            raise AssertionError(f"sw_fill, indel {indel}: old and new kernels differ")
+        del old_out
+        out[f"indel{indel}"] = in_turns(with_lib(fn, new_out, indel),
+                                        with_lib(new_fn, new_out, indel))
+        print(f"sw_fill, bench batch, indel {indel}: outputs equal bit for bit; "
+              f"{out[f'indel{indel}']}", flush=True)
+        del new_out
+    return out
+
+
+def fused_ab(old_dir: str, dev) -> dict:
+    """chip_smoke.py phase 14's 11,411 seeds (the 100 Mbp index is built
+    first, about a minute): every output bit for bit.  The old build's C
+    interface takes the eh scratch, the new one does not."""
+    from acc_genomics_tpu_torch.ops.extend import kernel as EK
+    from acc_genomics_tpu_torch.tools.bench_shapes import pipeline_fused_args
+
+    built = old_library(old_dir, "sw_extend")
+    new_built = EK.build_kernels()["sw_extend"]
+    fn, new_fn = built.lib.sw_extend_fused, new_built.lib.sw_extend_fused
+    fn.argtypes = [_P, _P, _I, _P, _I] + [_P] * 5 + [_I] * 11 + [_P] * 3
+    fn.restype = ctypes.c_int
+    regs = print_ptxas("sw_extend", built, new_built)
+    (sa, text, reads, rlens, rows, qbeg, slen, readid, flank, p), _ = pipeline_fused_args(dev)
+    n, width = rows.shape[0], reads.shape[1]
+    eh = torch.empty((2, width + 2, n), dtype=torch.int32, device=dev)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+    def with_lib(f, res, scratch):
+        def go():
+            err = f(_ptr(sa), _ptr(text), text.shape[0], _ptr(reads), width,
+                    *(_ptr(x) for x in (rlens, rows, qbeg, slen, readid)), n, flank,
+                    p.o_del, p.e_del, p.o_ins, p.e_ins, p.w, p.sc_match, p.sc_mismatch,
+                    p.sc_ambig, p.pen_clip, *([_ptr(scratch)] if scratch is not None else []),
+                    _ptr(res), stream)
+            if err:
+                raise RuntimeError(f"fused extension kernel: error {err}")
+        return go
+
+    old_res, new_res = (torch.zeros((8, n), dtype=torch.int32, device=dev) for _ in range(2))
+    with_lib(fn, old_res, eh)()
+    with_lib(new_fn, new_res, None)()
+    torch.cuda.synchronize()
+    if not torch.equal(old_res, new_res):
+        raise AssertionError("fused: old and new kernels differ")
+    out = {"ptxas": regs, "seeds": n, "width": width,
+           **in_turns(with_lib(fn, old_res, eh), with_lib(new_fn, new_res, None))}
+    print(f"fused, phase 14's {n} seeds (width {width}): outputs equal bit for bit; "
+          f"{ {k: v for k, v in out.items() if k != 'ptxas'} }", flush=True)
     return out
 
 
@@ -309,11 +408,12 @@ def band_superstep_ab(old_dir: str, dev) -> dict:
     return out
 
 
-ABS = {"extend": extend_ab, "pairhmm": pairhmm_ab, "band_superstep": band_superstep_ab}
+ABS = {"extend": extend_ab, "pairhmm": pairhmm_ab, "band_superstep": band_superstep_ab,
+       "sw_fill": sw_fill_ab, "fused": fused_ab}
 
 
 def main(argv) -> int:
-    names = argv[1:] or ["extend", "pairhmm", "band_superstep"]
+    names = argv[1:] or list(ABS)
     if not argv or not set(names) <= set(ABS) or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1

@@ -13,9 +13,12 @@ compute_pairs_flat_stream) on a WES-shaped batch of 16,384 pairs, and
 checks the contract edges (reference corpus, fp64 underflow recompute,
 host fallback).  Smith-Waterman: checks the fill and walk kernels bit for
 bit against their plain versions at the SW benchmark shape (8192 pairs,
-four overhang strategies), drives SWEngine on it against the native host
-engine and the oracle, and checks its edges (ties, mixed buckets, host
-fallback, element overflow).  HaplotypeCaller: drives
+four overhang strategies) and on the edges of the fill's warp per pair
+(reflen at the boundaries of its row chunks against altlen 1 and full,
+batches that leave a block partly filled, a filled 1536-row bucket),
+drives SWEngine on it against the native host engine and the oracle, and
+checks its edges (ties, mixed buckets, host fallback, element
+overflow).  HaplotypeCaller: drives
 HaplotypeCallerCore on the port's two engines at 64 and 1024 regions.
 BWA-MEM: checks the seed-extension kernel bit for bit against its plain
 version at the extension benchmark's shape, on three edge batches and on
@@ -32,8 +35,10 @@ engine and the oracle (with its edges); then drives BwaMemSeeding on
 GenomicsEngine over 2048 reads against the same composition over the
 native host engines and the oracle chain; checks the SMEM kernel and the
 fused seed-extension kernel bit for bit against their plain versions on
-BwaMemDevicePipeline's own launches, drives the pipeline on the same
-reads against BwaMemSeeding, and checks its edges.  Mesh: on a (1, 4)
+BwaMemDevicePipeline's own launches, and the fused kernel on the edges of
+its warp per seed (left queries of 0-33, read widths 32, 33, 256 and 300,
+seeds at both text ends, round 2), drives the pipeline on the same reads
+against BwaMemSeeding, and checks its edges.  Mesh: on a (1, 4)
 mesh of the one card, checks the band kernel against its plain version on
 the first and the middle superstep of the DP x SP pipeline (byte planes
 at C = 8, 16 and 32, fp32 planes at the engine's C) and times the
@@ -91,7 +96,6 @@ SMEM_PROBE_BYTES = 2 * 32  # two 32-byte probe-table rows an extension
 SMEM_GENOME = 100_000_000  # bases: drivers/smem_driver.py's genome scale
 SMEM_READS = 65536  # bench_smem's lane count, reads of 101
 BWA_READS = 2048  # bench_bwamem's reads (max_occ 4, flank 100)
-SW_BENCH_PAIRS = 8192  # bench.py bench_sw: one ref of 286 vs 8192 alts
 HC_SIZES = (64, 1024)  # regions: bench_hc's shape, and one full SW max_batch
 HC_REPEATS = 5
 # phase 15: 256 reads of up to 250 against 8 haplotypes of 2048-4096
@@ -245,29 +249,35 @@ def masked_max_abs(a, b, region, step: int = 512) -> int:
 def sw_bench_batch(dev):
     """bench.py bench_sw's batch (seed 0, one ref of 286 vs 8192 alts) as
     the engine cuts it: one 320 x 320 bucket in chunks of chunk_pairs."""
+    from acc_genomics_tpu_torch.tools.bench_shapes import sw_bench_chunks
+
+    ref, alts, chunks = sw_bench_chunks(dev)
+    rows, cols = chunks[0][0].shape[1], chunks[0][1].shape[1]
+    check(rows == cols == 320 and all(c[1].shape[1] == 320 for c in chunks)
+          and min(len(a) for a in alts) > 256, f"bench SW bucket {rows} x {cols}")
+    return ref, alts, chunks
+
+
+def sw_fill_walk_errors(ref, alt, rl, al, strategy: int):
+    """(fill error, walk error, walk output bytes) of the fill and walk
+    kernels against their plain versions on one batch: the fill inside
+    each pair's region, its last row and column, the packed walk of each
+    fill's own outputs."""
     import torch
 
-    from acc_genomics_tpu_torch.engine.sw_engine import chunk_pairs
-    from acc_genomics_tpu_torch.ops.sw.batch import pack_planes
-    from acc_genomics_tpu_torch.config import SWConfig
-    from acc_genomics_tpu_torch.io.synth import gen_sw_batch
+    from acc_genomics_tpu_torch.ops.sw import kernel as SK
 
-    ref, alts = gen_sw_batch(np.random.default_rng(0), SW_BENCH_PAIRS, ref_len=286)
-    cfg = SWConfig()
-    bucket = lambda n: next(b for b in cfg.seq_buckets if b >= n)
-    rows, cols = bucket(len(ref)), bucket(max(len(a) for a in alts))
-    check(rows == cols == 320 and bucket(min(len(a) for a in alts)) == 320,
-          f"bench SW bucket {rows} x {cols}")
-    seg = chunk_pairs(rows, cols, cfg.max_batch)
-    chunks = []
-    for lo in range(0, len(alts), seg):
-        part = alts[lo:lo + seg]
-        ref_p = np.empty((len(part), rows), np.uint8)
-        alt_p = np.empty((len(part), cols), np.uint8)
-        rl = pack_planes([ref] * len(part), rows, ref_p)
-        al = pack_planes(part, cols, alt_p)
-        chunks.append(tuple(torch.from_numpy(x).to(dev) for x in (ref_p, alt_p, rl, al)))
-    return ref, alts, chunks
+    rows, cols = ref.shape[1], alt.shape[1]
+    got = SK.sw_fill(ref, alt, rl, al, strategy)
+    want = SK.sw_fill_plain(ref, alt, rl, al, strategy)
+    err = masked_max_abs(got[0], want[0], SK.btrack_region(rl, al, rows, cols))
+    in_row = torch.arange(cols, device=ref.device)[None, :] < al[:, None]
+    in_col = torch.arange(rows, device=ref.device)[None, :] < rl[:, None]
+    err = max(err, int(torch.where(in_row, got[1] - want[1], 0).abs().max()),
+              int(torch.where(in_col, got[2] - want[2], 0).abs().max()))
+    packed = SK.sw_walk(*got, rl, al, strategy)
+    packed_plain = SK.sw_walk_plain(*want, rl, al, strategy)
+    return err, int((packed.int() - packed_plain.int()).abs().max()), nbytes(packed)
 
 
 def sw_kernels_vs_plain(chunks, card: str):
@@ -278,6 +288,7 @@ def sw_kernels_vs_plain(chunks, card: str):
     import torch
 
     from acc_genomics_tpu_torch.ops.sw import kernel as SK
+    from acc_genomics_tpu_torch.tools.bench_shapes import sw_fill_batches
 
     cells = sum(int((rl.long() * al.long()).sum()) for _, _, rl, al in chunks)
     # bytes each kernel must move: the fill reads the planes and lengths and
@@ -291,25 +302,20 @@ def sw_kernels_vs_plain(chunks, card: str):
     fill_err = walk_err = 0
     for strategy in (0, 1, 2, 3):
         for ref, alt, rl, al in chunks:
-            rows, cols = ref.shape[1], alt.shape[1]
-            got = SK.sw_fill(ref, alt, rl, al, strategy)
-            want = SK.sw_fill_plain(ref, alt, rl, al, strategy)
-            err = masked_max_abs(got[0], want[0], SK.btrack_region(rl, al, rows, cols))
-            in_row = torch.arange(cols, device=ref.device)[None, :] < al[:, None]
-            in_col = torch.arange(rows, device=ref.device)[None, :] < rl[:, None]
-            err = max(err, int(torch.where(in_row, got[1] - want[1], 0).abs().max()),
-                      int(torch.where(in_col, got[2] - want[2], 0).abs().max()))
-            fill_err = max(fill_err, err)
-            packed = SK.sw_walk(*got, rl, al, strategy)
-            packed_plain = SK.sw_walk_plain(*want, rl, al, strategy)
-            walk_out = nbytes(packed)
-            walk_err = max(walk_err, int((packed.int() - packed_plain.int()).abs().max()))
-            del got, want
+            f_err, w_err, walk_out = sw_fill_walk_errors(ref, alt, rl, al, strategy)
+            fill_err, walk_err = max(fill_err, f_err), max(walk_err, w_err)
         say(f"sw bench strategy {strategy}: {len(chunks)} chunks of "
             f"{[c[0].shape[0] for c in chunks]} pairs; fill max_abs_err={fill_err} "
             f"walk max_abs_err={walk_err}")
         check(fill_err == 0 and walk_err == 0,
               f"SW kernels vs plain, strategy {strategy}: not bit-exact")
+    # the edges of the warp-per-pair fill: chunk boundaries, altlen 1,
+    # batches that leave a block partly filled, a 1536-row bucket
+    for name, ref, alt, rl, al in sw_fill_batches(chunks[0][0].device):
+        errs = [sw_fill_walk_errors(ref, alt, rl, al, s)[:2] for s in (0, 1, 2, 3)]
+        say(f"sw edges {name}: {ref.shape[0]} pairs, {ref.shape[1]} x {alt.shape[1]}; "
+            f"fill and walk max_abs_err over 4 strategies {max(max(e) for e in errs)}")
+        check(all(e == (0, 0) for e in errs), f"SW kernels vs plain, {name}: not bit-exact")
 
     fills = [SK.sw_fill(*c, 0) for c in chunks]
     fill_ms = cuda_time_ms(lambda: [SK.sw_fill(*c, 0) for c in chunks])
@@ -888,7 +894,7 @@ def pipeline_phase(card: str, engines, fm, genome, bwa_reads, seeding_hits,
     import acc_genomics_tpu_torch.engine.smem_engine as smem_module
     import acc_genomics_tpu_torch.models.bwa_mem as bwa_module
     from acc_genomics_tpu_torch.config import SmemConfig
-    from acc_genomics_tpu_torch.tools.bench_shapes import capture_calls
+    from acc_genomics_tpu_torch.tools.bench_shapes import capture_calls, fused_batches
     from acc_genomics_tpu_torch.engine.smem_engine import SmemEngine
     from acc_genomics_tpu_torch.models import BwaEngines, BwaMemDevicePipeline, BwaMemSeeding
     from acc_genomics_tpu_torch.ops.extend import kernel as EK
@@ -939,6 +945,20 @@ def pipeline_phase(card: str, engines, fm, genome, bwa_reads, seeding_hits,
         f"{bool(np.array_equal(hits0, got.cpu().numpy()))}")
     check(n_seeds > 0 and err == 0, "fused kernel vs plain: not bit-exact")
     check(np.array_equal(hits0, got.cpu().numpy()), "fused kernel: repeated launch differs")
+    # the edges of the warp-per-seed kernel: left queries of 0-33, read
+    # widths 32, 33, 256 and 300 (tiles), both text ends, round 2
+    for b in fused_batches(pipe.device):
+        e_args = [b[k] for k in ("sa", "text", "reads", "rlens", "rows", "qbeg", "slen",
+                                 "readid", "flank", "params")]
+        e_got = EK.extend_seeds_fused(*e_args)
+        e_want = EK.extend_seeds_fused_plain(*e_args)
+        rounds2 = int((e_want[6] == 2 * b["params"].w).sum())
+        e_err = int((e_got.long() - e_want.long()).abs().max())
+        say(f"sw_extend_fused edges {b['name']}: {e_got.shape[1]} seeds, width "
+            f"{b['reads'].shape[1]}; max_abs_err={e_err} over 8 rows; round 2 on {rounds2}")
+        check(e_err == 0, f"fused kernel vs plain, {b['name']}: not bit-exact")
+        if b["name"].startswith("round 2"):
+            check(rounds2 > 0, "the round-2 fused batch ran round 2 on no seed")
     k_ms = cuda_time_ms(lambda: EK.extend_seeds_fused(*args, **kw))
     p_ms = cuda_time_ms(lambda: EK.extend_seeds_fused_plain(*args, **kw), repeats=1,
                         warm=False)

@@ -17,10 +17,12 @@ from acc_genomics_tpu.engine.genomics_engine import GenomicsEngine as JaxGenomic
 from acc_genomics_tpu.io.synth import gen_reference_with_repeats, gen_smem_reads
 from acc_genomics_tpu.models.bwa_mem import BwaMemDevicePipeline as JaxPipeline
 from acc_genomics_tpu.models.bwa_mem import TEXT_PAD, _extend_seeds_fused
+from acc_genomics_tpu.ops.extend.reference import ExtendParams as JaxExtendParams
 from acc_genomics_tpu_torch.config import EngineConfig, SmemConfig
 from acc_genomics_tpu_torch.engine.genomics_engine import GenomicsEngine
 from acc_genomics_tpu_torch.models import BwaMemDevicePipeline, BwaMemSeeding, SeedHit
 from acc_genomics_tpu_torch.ops.extend import kernel as EK
+from acc_genomics_tpu_torch.tools.bench_shapes import fused_batches
 
 
 def _engines(genome, smem=None):
@@ -128,6 +130,23 @@ def test_device_pipeline_zero_seeds(rng):
     assert pipe.map_reads([]) == []
 
 
+def _jax_fused(sa, text, reads, rlens, rows, qbeg, slen, readid, flank, params):
+    """The JAX ``_extend_seeds_fused`` (use_pallas=False) on the port's
+    arguments, with the guard flanks its slices need."""
+    wq = reads.shape[1]
+    wt = -(-(wq + flank) // 64) * 64
+    guard = max(TEXT_PAD, wt)
+    text_pad = np.full(len(text) + 2 * guard, 4, np.uint8)
+    text_pad[guard: guard + len(text)] = text
+    seq_pad = np.full((reads.shape[0], 3 * wq), 4, np.uint8)
+    seq_pad[:, wq: 2 * wq] = reads
+    n = rows.shape[0]
+    return np.asarray(_extend_seeds_fused(
+        sa, text_pad, np.int32(len(text)), seq_pad, rlens, rows, qbeg, slen, readid,
+        np.ones(max(n // 128, 1), np.int32), wq=wq, wt=wt, flank=flank, use_pallas=False,
+        params=JaxExtendParams(**params._asdict()), text_guard=guard))
+
+
 @pytest.mark.parametrize("flank", [40, 300])
 def test_fused_plain_matches_jax_fused(flank, rng):
     """extend_seeds_fused_plain against the JAX ``_extend_seeds_fused``
@@ -160,20 +179,30 @@ def test_fused_plain_matches_jax_fused(flank, rng):
                               params).numpy(), got)
 
     fm = jax_eng.smem.fm
-    wq = rd.shape[1]
-    wt = -(-(wq + flank) // 64) * 64
-    guard = max(TEXT_PAD, wt)
-    text_pad = np.full(fm.seq_len + 2 * guard, 4, np.uint8)
-    text_pad[guard: guard + fm.seq_len] = fm.text
-    seq_pad = np.full((rd.shape[0], 3 * wq), 4, np.uint8)
-    seq_pad[:, wq: 2 * wq] = rd.numpy()
-    n = rows.shape[0]
-    want = _extend_seeds_fused(
-        fm.sa.astype(np.int32), text_pad, np.int32(fm.seq_len), seq_pad,
-        rlens.numpy(), rows.numpy(), qbeg.numpy(), slen.numpy(), readid.numpy(),
-        np.ones(max(n // 128, 1), np.int32), wq=wq, wt=wt, flank=flank,
-        use_pallas=False, params=jax_eng.extend.config.params(), text_guard=guard)
-    np.testing.assert_array_equal(got, np.asarray(want))
+    want = _jax_fused(fm.sa.astype(np.int32), fm.text, rd.numpy(), rlens.numpy(),
+                      rows.numpy(), qbeg.numpy(), slen.numpy(), readid.numpy(), flank,
+                      params)
+    np.testing.assert_array_equal(got, want)
+
+
+_FUSED_EDGES = {b["name"]: b for b in fused_batches(torch.device("cpu"), n=24)}
+
+
+@pytest.mark.parametrize("batch", sorted(_FUSED_EDGES))
+def test_fused_plain_matches_jax_fused_at_warp_edges(batch):
+    """The edges of the CUDA kernel's warp per seed (left queries of 0-33,
+    read widths 32, 33, 256 and 300, seeds at both text ends, round 2):
+    extend_seeds_fused_plain against the JAX ``_extend_seeds_fused``, all
+    8 rows exactly."""
+    b = _FUSED_EDGES[batch]
+    keys = ("sa", "text", "reads", "rlens", "rows", "qbeg", "slen", "readid")
+    got = EK.extend_seeds_fused(*(b[k] for k in keys), b["flank"], b["params"]).numpy()
+    want = _jax_fused(*(b[k].numpy() for k in keys), b["flank"], b["params"])
+    np.testing.assert_array_equal(got, want)
+    if batch.startswith("round 2"):
+        assert (got[6] == 2 * b["params"].w).any()
+    if batch.startswith("text ends"):
+        assert {0, len(b["text"]) - int(b["slen"][1])} <= set(got[7].tolist())
 
 
 def test_fused_wrapper_rejects_mixed_devices():

@@ -158,7 +158,7 @@ def _sw_planes(rng, n, ref_len, rows, cols, cuda):
 @pytest.mark.parametrize("bucket", [(64, 56), (1536, 1450)])
 def test_cuda_sw_kernels_match_plain(cuda, bucket):
     """Bit-exact in each pair's region, all four strategies; 1536 rows
-    run two rows per thread (a block has at most 1024 threads)."""
+    run 48 chunks of 32 rows in turn on a pair's warp."""
     rows, ref_len = bucket
     rng = np.random.default_rng(2)
     ref, alt, rl, al = _sw_planes(rng, 6, ref_len, rows, rows, cuda)
@@ -176,6 +176,31 @@ def test_cuda_sw_kernels_match_plain(cuda, bucket):
             assert torch.equal(got[1][b, : al[b]], want[1][b, : al[b]])
             assert torch.equal(got[2][b, : rl[b]], want[2][b, : rl[b]])
         assert torch.equal(packed, SK.sw_walk_plain(*want, rl, al, strategy))
+
+
+@pytest.mark.gpu
+def test_cuda_sw_fill_warp_edges(cuda):
+    """The warp-per-pair fill at its edges (reflen 1-65 at the 32-row chunk
+    boundaries against altlen 1 and full, batches of 1, 5 and 13 pairs that
+    leave a four-warp block partly filled, a 1536-row bucket filled) in all
+    four strategies: bit-exact in each pair's region, the walk of its
+    outputs bit-exact too."""
+    from acc_genomics_tpu_torch.tools.bench_shapes import sw_fill_batches
+
+    batches = sw_fill_batches(cuda)
+    assert len(batches) == 5
+    for name, ref, alt, rl, al in batches:
+        rows, cols = ref.shape[1], alt.shape[1]
+        region = SK.btrack_region(rl, al, rows, cols)
+        for strategy in (0, 1, 2, 3):
+            got = SK.sw_fill(ref, alt, rl, al, strategy)
+            want = SK.sw_fill_plain(ref, alt, rl, al, strategy)
+            assert not ((got[0] != want[0]) & region).any(), (name, strategy)
+            for b in range(len(rl)):
+                assert torch.equal(got[1][b, : al[b]], want[1][b, : al[b]]), (name, b)
+                assert torch.equal(got[2][b, : rl[b]], want[2][b, : rl[b]]), (name, b)
+            assert torch.equal(SK.sw_walk(*got, rl, al, strategy),
+                               SK.sw_walk_plain(*want, rl, al, strategy)), (name, strategy)
 
 
 @pytest.mark.gpu
@@ -362,6 +387,33 @@ def test_cuda_fused_extension_matches_plain(cuda, flank):
     assert EK.LAUNCHES["sw_extend_fused"] == before + 1 and hits.shape[1] > 0
     want = EK.extend_seeds_fused_plain(*calls[0])
     assert torch.equal(torch.from_numpy(hits), want.cpu())
+
+
+@pytest.mark.gpu
+def test_cuda_fused_extension_warp_edges(cuda):
+    """The warp-per-seed fused kernel at its edges (left queries of 0, 1,
+    31, 32 and 33 at width 256, widths 32, 33 and 300 (tiles), seeds at
+    both text ends with flank 100 and 300, round 2 at band 8) bit for bit
+    against the plain version; a read width past the tiles raises."""
+    from acc_genomics_tpu_torch.tools.bench_shapes import fused_batches
+
+    batches = fused_batches(cuda)
+    assert len(batches) == 7
+    for b in batches:
+        args = [b[k] for k in ("sa", "text", "reads", "rlens", "rows", "qbeg", "slen",
+                               "readid", "flank", "params")]
+        before = EK.LAUNCHES["sw_extend_fused"]
+        got = EK.extend_seeds_fused(*args)
+        want = EK.extend_seeds_fused_plain(*args)
+        assert EK.LAUNCHES["sw_extend_fused"] == before + 1
+        assert torch.equal(got, want), b["name"]
+        if b["name"].startswith("round 2"):
+            assert bool((want[6] == 2 * b["params"].w).any())
+    b = batches[0]
+    wide = torch.zeros((1, EK.MAX_QUERY + 1), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="read width"):
+        EK.extend_seeds_fused(b["sa"], b["text"], wide, b["rlens"][:1], b["rows"],
+                              b["qbeg"], b["slen"], b["readid"] * 0, 100)
 
 
 @pytest.mark.gpu

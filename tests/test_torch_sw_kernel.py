@@ -29,6 +29,7 @@ from acc_genomics_tpu_torch.ops.sw.batch import (
     sw_align_batch_launch,
 )
 from acc_genomics_tpu_torch.ops.sw.walker import decode_elements
+from acc_genomics_tpu_torch.tools.bench_shapes import sw_fill_batches
 
 STRATEGIES = [0, 1, 2, 3]
 CPU = torch.device("cpu")
@@ -134,6 +135,28 @@ def test_fill_matches_jax_xla(case, strategy, rng):
     w_bt, w_last, w_col = (np.asarray(x) for x in jax_impl.sw_fill(
         ref.T.astype(np.int32), alt.T.astype(np.int32), rl, al, strategy))
     for b in range(len(refs)):
+        i, j = np.meshgrid(np.arange(rl[b]), np.arange(al[b]), indexing="ij")
+        np.testing.assert_array_equal(btrack[b, i + j, i], w_bt[i, j, b])
+        np.testing.assert_array_equal(lastrow[b, : al[b]], w_last[1 : al[b] + 1, b])
+        np.testing.assert_array_equal(altcol[b, : rl[b]], w_col[: rl[b], b])
+
+
+_EDGES = {name: (ref, alt, rl, al)
+          for name, ref, alt, rl, al in sw_fill_batches(CPU, big=False)}
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("batch", sorted(_EDGES))
+def test_fill_matches_jax_xla_at_chunk_edges(batch, strategy):
+    """The edges of the CUDA fill's 32-row chunks (reflen 1-65 against
+    altlen 1 and full) and batches of 1, 5 and 13 pairs: the plain fill
+    against the XLA fill inside each pair's region."""
+    ref, alt, rl, al = (x.numpy() for x in _EDGES[batch])
+    btrack, lastrow, altcol = (x.numpy() for x in K.sw_fill(
+        *(torch.from_numpy(x) for x in (ref, alt, rl, al)), strategy))
+    w_bt, w_last, w_col = (np.asarray(x) for x in jax_impl.sw_fill(
+        ref.T.astype(np.int32), alt.T.astype(np.int32), rl, al, strategy))
+    for b in range(len(rl)):
         i, j = np.meshgrid(np.arange(rl[b]), np.arange(al[b]), indexing="ij")
         np.testing.assert_array_equal(btrack[b, i + j, i], w_bt[i, j, b])
         np.testing.assert_array_equal(lastrow[b, : al[b]], w_last[1 : al[b] + 1, b])

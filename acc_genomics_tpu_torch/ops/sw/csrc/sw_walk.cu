@@ -7,26 +7,33 @@
 // What it computes, per pair, from the fill's outputs (sw_fill.cu):
 //   * the start cell with GATK's tie-break (calculateCigarOneBatch): the
 //     last maximum of the last alt column; then, unless the strategy is
-//     INDEL or LEADING_INDEL, a cell of the last row replaces it when it is
-//     strictly greater, or equal and strictly closer to the corner by
-//     |reflen - j| (the sequential chain that walker.py reduces to an
-//     argmin of 2|reflen - j| + (j > reflen));
+//     INDEL or LEADING_INDEL, the cell of the last row with the smallest
+//     key 2|reflen - j| + (j > reflen) among its maxima replaces it when
+//     it is strictly greater, or equal and strictly closer to the corner
+//     (walker.py's reduction of GATK's sequential chain);
 //   * the SOFTCLIP leading clip of the alt columns past the start;
-//   * the walk, one btrack cell per step, run-length-encoding elements
-//     (length, state) in walk order into 48 slots; past 48 the count keeps
-//     growing and the last slot is overwritten, and the host reruns such
-//     pairs on the oracle;
+//   * the walk, run-length-encoding elements (length, state) in walk order
+//     into 48 slots; past 48 the count keeps growing and the last slot is
+//     overwritten, and the host reruns such pairs on the oracle;
 //   * the finish of each strategy and the alignment offset.
 // Output: one int16 (48 + 2, B) buffer, the layout of walker.py:212-222:
 // rows 0..47 hold len | state << 12, row 48 the element count, row 49
 // the offset.  Only this buffer leaves the card.
 //
-// Design: one thread per pair, all state in registers; each step reads one
-// int16 of the pair's btrack (B, D, R), cell (i, j) at [b][i + j][i].
-// Bound on this card: the latency of one dependent global load per step
-// (the next cell depends on the code just read), hidden only by the other
-// pairs' threads; a walk is a few hundred steps.
+// Design: one warp per pair.  The btrack matrix (B, D, R) holds cell
+// (i, j) at [b][i + j][i]; a walk step's address depends on the code just
+// read, so a walk that reads one cell at a time waits one memory round
+// trip a step.  Here every round reads the next 32 cells of the diagonal
+// at once, lane l the cell (p1 - l, p2 - l), addresses all known before
+// the load issues; a ballot finds the first gap code (or the matrix
+// edge), every cell before it is a match step, and the gap cell is taken
+// as one step.  A walk of S steps with G gaps costs about S / 32 + G round
+// trips.  The start cell comes from warp reductions over the last alt
+// column and the last row, read coalesced.  Every lane runs the same walk
+// state (only the loads differ); lane s % 32 keeps element slot s in a
+// register and the 50 values are written once at the end.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -35,54 +42,103 @@ namespace {
 constexpr int kShipElems = 48;
 constexpr int kSoftclip = 0, kIndel = 1, kLeadingIndel = 2, kIgnore = 3;
 constexpr int kMatch = 0, kInsertion = 1, kDeletion = 2, kClip = 4;
+constexpr int kLow = -(1 << 30);  // the plain version's mask value (LOW_INIT)
+constexpr int kBig = 1 << 30;     // its "no eligible cell" key
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpsPerBlock = 2;
 
-__global__ void sw_walk_kernel(const int16_t* __restrict__ btrack,
-                               const int32_t* __restrict__ lastrow,
-                               const int32_t* __restrict__ altcol,
-                               const int32_t* __restrict__ reflen,
-                               const int32_t* __restrict__ altlen, int rows,
-                               int cols, int batch, int strategy,
-                               int16_t* __restrict__ out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  const int rl = min(reflen[b], rows);
-  const int al = min(altlen[b], cols);
-  const int n_diag = rows + cols - 1;
-  const int16_t* bt = btrack + (int64_t)b * n_diag * rows;
+// (largest value, the largest i holding it) of v[0..n) with i = index + 1,
+// masked cells counted as kLow when n < width, over the warp: the last
+// maximum of the alt column.
+__device__ __forceinline__ void last_max(const int32_t* __restrict__ v, int n,
+                                         int width, int lane, int& m,
+                                         int& at) {
+  int best = n < width ? kLow : INT_MIN, where = 0;
+  for (int i0 = lane; i0 < n; i0 += 128) {
+    int x[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      x[k] = i0 + 32 * k < n ? __ldg(v + i0 + 32 * k) : INT_MIN;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (i0 + 32 * k < n && x[k] >= best) {
+        best = x[k];
+        where = i0 + 32 * k + 1;
+      }
+  }
+  m = __reduce_max_sync(kFull, best);
+  at = __reduce_max_sync(kFull, best == m ? where : 0);
+}
 
-  auto put = [&](int slot, int len, int state) {
-    out[(int64_t)min(slot, kShipElems - 1) * batch + b] =
-        (int16_t)(len | (state << 12));
-  };
-  for (int s = 0; s < kShipElems; ++s) out[(int64_t)s * batch + b] = 0;
-
-  // -- start cell ---------------------------------------------------------
-  int p1, p2, seg = 0;
-  if (strategy == kIndel) {
-    p1 = rl;
-    p2 = al;
-  } else {
-    p1 = 0;
-    p2 = al;
-    int64_t best = -(int64_t(1) << 62);
-    const int32_t* col = altcol + (int64_t)b * rows;
-    for (int i = 1; i <= rl; ++i) {
-      const int32_t v = col[i - 1];
-      if (v >= best) {  // the last maximum
-        p1 = i;
-        best = v;
+// (largest value, the smallest key 2|rl - j| + (j > rl) among the cells
+// holding it) of the last row v[0..n), j = index + 1, masked as above.
+__device__ __forceinline__ void nearest_max(const int32_t* __restrict__ v,
+                                            int n, int width, int rl,
+                                            int lane, int& m, int& kmin) {
+  int best = n < width ? kLow : INT_MIN, key = kBig;
+  for (int j0 = lane; j0 < n; j0 += 128) {
+    int x[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      x[k] = j0 + 32 * k < n ? __ldg(v + j0 + 32 * k) : INT_MIN;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = j0 + 32 * k + 1;
+      if (j > n) continue;
+      const int kj = 2 * abs(rl - j) + (j > rl);
+      if (x[k] > best) {
+        best = x[k];
+        key = kj;
+      } else if (x[k] == best) {
+        key = min(key, kj);
       }
     }
+  }
+  m = __reduce_max_sync(kFull, best);
+  kmin = __reduce_min_sync(kFull, best == m ? key : kBig);
+}
+
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+    sw_walk_kernel(const int16_t* __restrict__ btrack,
+                   const int32_t* __restrict__ lastrow,
+                   const int32_t* __restrict__ altcol,
+                   const int32_t* __restrict__ reflen,
+                   const int32_t* __restrict__ altlen, int rows, int cols,
+                   int batch, int strategy, int16_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (b >= batch) return;  // the whole warp
+  const int rl = max(0, min(reflen[b], rows));
+  const int al = max(0, min(altlen[b], cols));
+
+  // lane s % 32 holds element slot s: lo for s < 32, hi for 32 <= s < 48
+  int16_t lo = 0, hi = 0;
+  auto put = [&](int slot, int len, int state) {
+    const int s = min(slot, kShipElems - 1);
+    const int16_t v = (int16_t)(len | (state << 12));
+    if (lane == (s & 31)) {
+      if (s < 32)
+        lo = v;
+      else
+        hi = v;
+    }
+  };
+
+  // -- start cell ---------------------------------------------------------
+  int p1 = rl, p2 = al, seg = 0;
+  if (strategy != kIndel) {
+    int m1, p1a;
+    last_max(altcol + (int64_t)b * rows, rl, rows, lane, m1, p1a);
+    p1 = p1a;
     if (strategy != kLeadingIndel) {
-      const int32_t* row = lastrow + (int64_t)b * cols;
-      for (int j = 1; j <= al; ++j) {
-        const int32_t v = row[j - 1];
-        if (v > best || (v == best && abs(rl - j) < abs(p1 - p2))) {
-          p1 = rl;
-          p2 = j;
-          best = v;
-          seg = al - j;
-        }
+      int mlr, kmin;
+      nearest_max(lastrow + (int64_t)b * cols, al, cols, rl, lane, mlr, kmin);
+      if (mlr > m1 || (mlr == m1 && (kmin >> 1) < abs(p1a - al))) {
+        // kmin names its cell: even keys lie at j <= rl, odd ones past it
+        const int jstar = kmin & 1 ? rl + (kmin >> 1) : rl - (kmin >> 1);
+        p1 = rl;
+        p2 = jstar;
+        seg = al - jstar;
       }
     }
   }
@@ -96,30 +152,45 @@ __global__ void sw_walk_kernel(const int16_t* __restrict__ btrack,
     seg = 0;
   }
 
-  // -- walk ---------------------------------------------------------------
+  // -- walk, 32 cells of the diagonal a round ------------------------------
+  const int n_diag = rows + cols - 1;
+  const int16_t* bt = btrack + (int64_t)b * n_diag * rows;
   int state = kMatch;
   bool active = p1 > 0 && p2 > 0 && rl > 0 && al > 0;
   while (active) {
-    const int d = min(max(p1 - 1 + p2 - 1, 0), n_diag - 1);
-    const int i = min(max(p1 - 1, 0), rows - 1);
-    const int code = bt[(int64_t)d * rows + i];
-    const int new_state = code > 0 ? kDeletion : (code < 0 ? kInsertion : kMatch);
-    const int step = code > 0 ? code : (code < 0 ? -code : 1);
-    if (new_state == kDeletion) {
-      p1 -= step;
-    } else if (new_state == kInsertion) {
-      p2 -= step;
-    } else {
-      p1 -= 1;
-      p2 -= 1;
+    const int i = p1 - lane, j = p2 - lane;
+    const bool inside = i > 0 && j > 0;
+    const int code = inside ? __ldg(bt + (int64_t)(i + j - 2) * rows + (i - 1)) : 0;
+    const unsigned stop = __ballot_sync(kFull, !inside || code != 0);
+    const int run = stop ? __ffs(stop) - 1 : 32;  // match steps before the stop
+    const int gap = __shfl_sync(kFull, code, run & 31);
+    if (run > 0) {
+      if (state != kMatch) {
+        put(en, seg, state);
+        ++en;
+        seg = run;
+        state = kMatch;
+      } else {
+        seg += run;
+      }
+      p1 -= run;
+      p2 -= run;
     }
-    if (new_state != state) {
-      put(en, seg, state);
-      ++en;
-      seg = step;
-      state = new_state;
-    } else {
-      seg += step;
+    if (run < 32 && p1 > 0 && p2 > 0) {  // the stop is a gap cell: one step
+      const int new_state = gap > 0 ? kDeletion : kInsertion;
+      const int step = abs(gap);
+      if (new_state != state) {
+        put(en, seg, state);
+        ++en;
+        seg = step;
+        state = new_state;
+      } else {
+        seg += step;
+      }
+      if (gap > 0)
+        p1 -= step;
+      else
+        p2 -= step;
     }
     active = p1 > 0 && p2 > 0;
   }
@@ -150,8 +221,11 @@ __global__ void sw_walk_kernel(const int16_t* __restrict__ btrack,
     }
     offset = 0;
   }
-  out[(int64_t)kShipElems * batch + b] = (int16_t)en;
-  out[(int64_t)(kShipElems + 1) * batch + b] = (int16_t)offset;
+  int16_t* o = out + b;
+  o[(int64_t)lane * batch] = lo;
+  if (lane < kShipElems - 32) o[(int64_t)(lane + 32) * batch] = hi;
+  if (lane == kShipElems - 32) o[(int64_t)kShipElems * batch] = (int16_t)en;
+  if (lane == kShipElems - 31) o[(int64_t)(kShipElems + 1) * batch] = (int16_t)offset;
 }
 
 }  // namespace
@@ -166,11 +240,10 @@ int sw_walk(const int16_t* btrack, const int32_t* lastrow,
   if (rows <= 0 || cols <= 0 || strategy < kSoftclip || strategy > kIgnore)
     return (int)cudaErrorInvalidValue;
   if (batch == 0) return 0;
-  const int threads = 128;
-  sw_walk_kernel<<<(batch + threads - 1) / threads, threads, 0,
-                   (cudaStream_t)stream>>>(btrack, lastrow, altcol, reflen,
-                                           altlen, rows, cols, batch,
-                                           strategy, out);
+  sw_walk_kernel<<<(batch + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                   32 * kWarpsPerBlock, 0, (cudaStream_t)stream>>>(
+      btrack, lastrow, altcol, reflen, altlen, rows, cols, batch, strategy,
+      out);
   return (int)cudaGetLastError();
 }
 

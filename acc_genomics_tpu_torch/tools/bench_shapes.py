@@ -274,6 +274,151 @@ def sw_fill_batches(dev, big: bool = True):
     return out
 
 
+WALK_GAP_PAIRS = 4096  # the gap-heavy walk batch: one SWEngine chunk
+
+# Found by a search over random sequences of two or three letters: pairs
+# whose last row holds its maxima on both sides of j = reflen (the last
+# two across 32-cell chunks), as (ref, alt) digit strings.
+_LAST_ROW_TIES = [
+    ("0210220", "0101201112012220210"),
+    ("222010102", "2122102220211"),
+    ("01133", "203120220012203111122"),
+    ("10001", "11011100"),
+    ("01111", "00010000001"),
+    ("1011101", "00001000"),
+    ("0122", "0010001"),
+    ("01010", "0110000011111101100111"),
+    ("0001100111010001101001111011100100111110001110",
+     "01010111011101111011100001111000111011001111000100100000"),
+    ("110010111001111100011011101001010111001100011001101111110100110",
+     "10000001100011001010010000101000011110111111001001000110111011000000"),
+]
+# Found the same way: prefixes of (ref, alt) before a shared core after
+# which the walk's last step is a gap that lands on row 0 or column 0.
+_EDGE_GAP_PREFIXES = [("111", "0221320003"), ("11", "0322332"), ("0020", "31")]
+
+
+def _codes(digits: str) -> np.ndarray:
+    return np.frombuffer(digits.encode(), np.uint8) - ord("0")
+
+
+def _one_base_gaps(rng, ref, every: int, kinds: str, lead: int = 0) -> np.ndarray:
+    """ref with a one-base gap after every ``every`` bases, ``kinds``
+    cycling "I" (a base unlike both neighbours inserted) and "D" (a ref
+    base left out), after ``lead`` random bases."""
+    alt, n = list(rng.integers(0, 4, lead)), 0
+    for p, b in enumerate(ref):
+        if p and p % every == 0:
+            kind = kinds[n % len(kinds)]
+            n += 1
+            if kind == "D":
+                continue
+            alt.append(next(x for x in range(4) if x != b and x != ref[p - 1]))
+        alt.append(b)
+    return np.asarray(alt, np.uint8)
+
+
+def _gap_heavy(rng, n: int, width: int = 320):
+    """n pairs of a random ref of 280-300 bases and an alt with an indel of
+    1-3 bases every 10-30 bases (insertions and deletions alike), both cut
+    to ``width``."""
+    pairs = []
+    for _ in range(n):
+        ref = rng.integers(0, 4, int(rng.integers(280, 301))).astype(np.uint8)
+        parts, at = [], 0
+        while at < len(ref):
+            step = int(rng.integers(10, 31))
+            parts.append(ref[at:at + step])
+            at += step
+            k = int(rng.integers(1, 4))
+            if rng.random() < 0.5:
+                parts.append(rng.integers(0, 4, k).astype(np.uint8))
+            else:
+                at += k
+        pairs.append((ref[:width], np.concatenate(parts)[:width]))
+    return pairs
+
+
+def sw_walk_batches(dev, gap_pairs: int = WALK_GAP_PAIRS):
+    """The SW walk's edges as (name, ref (B, R), alt (B, C), reflen, altlen)
+    on ``dev``, for the warp design that consumes a diagonal's match run
+    32 cells a round: match runs of exactly 31, 32, 33 and 64 cells before
+    a 3-base deletion or insertion, and alone to the corner; gaps of 40
+    and 70 (past a round's reach), a gap as the first step (a tail
+    insertion or deletion, under INDEL) and as the last one (landing on row
+    0 or column 0), walks ending on row 0, column 0 and the corner; reflen
+    or altlen 1; start-cell ties (tandem repeats with maxima at many cells
+    of the last alt column and of the last row past j = reflen,
+    homopolymers, and ``_LAST_ROW_TIES``); 47, 48, 49 and 53 elements (one
+    slot short, full, one past and well past the 48 shipped); and
+    ``gap_pairs`` gap-heavy pairs in a 320 x 320 bucket (an indel every
+    10-30 bases), the timing batch."""
+    from acc_genomics_tpu_torch.ops.sw.batch import pack_planes
+
+    rng = np.random.default_rng(11)
+    rand = lambda n: rng.integers(0, 4, n).astype(np.uint8)
+    unlike = lambda x: ((x + rng.integers(1, 4, len(x))) % 4).astype(np.uint8)
+    out = []
+
+    def on(name, pairs, rows, cols):
+        ref = np.empty((len(pairs), rows), np.uint8)
+        alt = np.empty((len(pairs), cols), np.uint8)
+        rl = pack_planes([r for r, _ in pairs], rows, ref)
+        al = pack_planes([a for _, a in pairs], cols, alt)
+        out.append((name, *(torch.from_numpy(x).to(dev) for x in (ref, alt, rl, al))))
+
+    pairs = []
+    for run in (31, 32, 33, 64):
+        ref = rand(96 + run)
+        at = len(ref) - run  # the run: ref[at:] against the alt's last bases
+        if ref[at] == ref[at - 3]:  # a deletion that cannot slide
+            ref[at] = (ref[at] + 1) % 4
+        if ref[at - 4] == ref[at - 1]:
+            ref[at - 1] = next(x for x in range(4) if x not in (ref[at - 4], ref[at]))
+        pairs.append((ref, np.concatenate([ref[:at - 3], ref[at:]])))
+        ins = next(x for x in range(4) if x not in (ref[at - 1], ref[at]))
+        pairs.append((ref, np.concatenate([ref[:at], np.full(3, ins, np.uint8), ref[at:]])))
+        pairs.append((ref[at:], ref[at:].copy()))
+    on("match runs of 31/32/33/64 before a gap and to the corner, 176 x 176", pairs, 176, 176)
+
+    core = rand(80)
+    pairs = []
+    for g in (40, 70):
+        ref = rand(120 + g)
+        pairs.append((ref, np.concatenate([ref[:60], ref[60 + g:]])))
+        pairs.append((ref[:120], np.concatenate([ref[:60], rand(g), ref[60:120]])))
+    pairs += [(core, np.concatenate([core, rand(5)])), (np.concatenate([core, rand(5)]), core)]
+    pairs += [(np.concatenate([_codes(r), core[:40]]), np.concatenate([_codes(a), core[:40]]))
+              for r, a in _EDGE_GAP_PREFIXES]
+    pairs += [(core, np.concatenate([rand(5), core])), (np.concatenate([rand(5), core]), core),
+              (core, core.copy())]
+    on("gaps of 40/70, gaps first and last, ends on row 0/column 0/corner, 192 x 192",
+       pairs, 192, 192)
+
+    base = rand(48)
+    on("reflen or altlen 1, 48 x 48",
+       [(base[:1], base[:1]), (base[:1], unlike(base[:1])), (base[:1], base[:40]),
+        (base[:40], base[5:6]), (base[:1], base), (base, base[47:])], 48, 48)
+
+    per = np.tile(np.array([0, 1], np.uint8), 20)
+    tri = np.tile(np.array([0, 1, 1], np.uint8), 20)
+    pairs = [(tri, tri[:24]), (per, np.tile(per, 2)[:68]), (np.zeros(18, np.uint8),
+             np.zeros(22, np.uint8)), (np.zeros(70, np.uint8), np.zeros(45, np.uint8)),
+             (per, np.roll(per, 1))]
+    pairs += [(_codes(r), _codes(a)) for r, a in _LAST_ROW_TIES]
+    on("start-cell ties, 72 x 72", pairs, 72, 72)
+
+    pairs = []
+    for length, lead, kinds in ((96, 0, "I"), (96, 1, "I"), (100, 0, "I"), (140, 0, "ID")):
+        ref = rand(length)
+        pairs.append((ref, _one_base_gaps(rng, ref, 4, kinds, lead)))
+    on("47/48/49/53 elements, 144 x 160", pairs, 144, 160)
+
+    if gap_pairs:
+        on(f"gap-heavy, {gap_pairs} pairs, 320 x 320", _gap_heavy(rng, gap_pairs), 320, 320)
+    return out
+
+
 def _fused_case(rng, n, width, qbegs, text_len=20_000, ends=False, gap=0):
     """Seeds planted in a random text: read b spans text[pos - qbeg:] (95%
     identity outside the seed, an N in every fifth read) with its seed of

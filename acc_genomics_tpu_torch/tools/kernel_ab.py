@@ -3,11 +3,11 @@ in turns on one card at the same inputs.
 
     python -m acc_genomics_tpu_torch.tools.kernel_ab OLD_DIR [KERNEL ...]
 
-KERNEL is ``extend``, ``pairhmm``, ``band_superstep``, ``sw_fill`` or
-``fused`` (the default: all five).  OLD_DIR holds the earlier commit's
-sources of the kernels named (``git show <commit>:<path>`` of
-``acc_genomics_tpu_torch/ops/.../csrc/``), built with the package's nvcc
-flags into its build directory:
+KERNEL is ``extend``, ``pairhmm``, ``band_superstep``, ``sw_fill``,
+``sw_walk`` or ``fused`` (the default: all six).  OLD_DIR holds the
+earlier commit's sources of the kernels named (``git show <commit>:<path>``
+of ``acc_genomics_tpu_torch/ops/.../csrc/``), built with the package's
+nvcc flags into its build directory:
 
   extend   ``sw_extend.cu`` (C entry point ``sw_extend``; the old
            interface takes an eh scratch, which the new one dropped): the
@@ -25,6 +25,11 @@ flags into its build directory:
   sw_fill  ``sw_fill.cu`` (the same C interface ``sw_fill``): the SW bench
            batch's two 4,096-pair chunks (320 x 320) without and with the
            indel ramps, every output bit for bit;
+  sw_walk  ``sw_walk.cu`` (the same C interface ``sw_walk``): the same fill
+           outputs (strategy 0) walked by both builds, on the SW bench
+           batch's two chunks, the 1536-row bucket of ``sw_fill_batches``
+           and the 4,096 gap-heavy pairs of ``sw_walk_batches``, the packed
+           outputs bit for bit;
   fused    ``sw_extend.cu`` (C entry point ``sw_extend_fused``; the old
            interface takes an eh scratch): chip_smoke.py phase 14's seeds
            on its 100 Mbp index (built first, about a minute), every output
@@ -221,6 +226,61 @@ def sw_fill_ab(old_dir: str, dev) -> dict:
     return out
 
 
+def sw_walk_ab(old_dir: str, dev) -> dict:
+    """The same fill outputs (strategy 0) walked by both builds: the SW
+    bench batch's two 4,096-pair chunks, the 1536-row bucket of
+    ``sw_fill_batches`` and the gap-heavy batch of ``sw_walk_batches``;
+    the packed outputs bit for bit."""
+    from acc_genomics_tpu_torch.ops.sw import kernel as SK
+    from acc_genomics_tpu_torch.tools.bench_shapes import (
+        WALK_GAP_PAIRS,
+        sw_bench_chunks,
+        sw_fill_batches,
+        sw_walk_batches,
+    )
+
+    built = old_library(old_dir, "sw_walk")
+    new_built = SK.build_kernels()["sw_walk"]
+    fn, new_fn = built.lib.sw_walk, new_built.lib.sw_walk
+    fn.argtypes = new_fn.argtypes
+    fn.restype = ctypes.c_int
+    regs = print_ptxas("sw_walk", built, new_built)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    cases = (("bench", lambda: sw_bench_chunks(dev)[2]),
+             ("1536 bucket", lambda: [b[1:] for b in sw_fill_batches(dev)
+                                      if b[1].shape[1] == 1536]),
+             ("gap-heavy", lambda: [b[1:] for b in sw_walk_batches(dev)
+                                    if b[1].shape[0] == WALK_GAP_PAIRS]))
+    out = {"ptxas": regs}
+    for name, batch in cases:
+        fills = [(SK.sw_fill(r, a, rl, al, 0), rl, al) for r, a, rl, al in batch()]
+
+        def with_lib(f, outs):
+            def go():
+                for ((bt, lr, ac), rl, al), o in zip(fills, outs):
+                    rows = bt.shape[2]
+                    err = f(*(_ptr(x) for x in (bt, lr, ac, rl, al)), rows,
+                            bt.shape[1] - rows + 1, bt.shape[0], 0, _ptr(o), stream)
+                    if err:
+                        raise RuntimeError(f"SW walk kernel: error {err}")
+            return go
+
+        old_out, new_out = ([torch.zeros((SK.SHIP_ELEMS + 2, f[0][0].shape[0]),
+                                         dtype=torch.int16, device=dev) for f in fills]
+                            for _ in range(2))
+        with_lib(fn, old_out)()
+        with_lib(new_fn, new_out)()
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, n) for o, n in zip(old_out, new_out)):
+            raise AssertionError(f"sw_walk, {name}: old and new kernels differ")
+        out[name] = {"launches": len(fills), "pairs": [f[0][0].shape[0] for f in fills],
+                     "bucket": list(fills[0][0][0].shape),
+                     **in_turns(with_lib(fn, old_out), with_lib(new_fn, new_out))}
+        print(f"sw_walk, {name}: outputs equal bit for bit; {out[name]}", flush=True)
+        del fills, old_out, new_out
+    return out
+
+
 def fused_ab(old_dir: str, dev) -> dict:
     """chip_smoke.py phase 14's 11,411 seeds (the 100 Mbp index is built
     first, about a minute): every output bit for bit.  The old build's C
@@ -409,7 +469,7 @@ def band_superstep_ab(old_dir: str, dev) -> dict:
 
 
 ABS = {"extend": extend_ab, "pairhmm": pairhmm_ab, "band_superstep": band_superstep_ab,
-       "sw_fill": sw_fill_ab, "fused": fused_ab}
+       "sw_fill": sw_fill_ab, "sw_walk": sw_walk_ab, "fused": fused_ab}
 
 
 def main(argv) -> int:

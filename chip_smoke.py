@@ -15,10 +15,14 @@ host fallback).  Smith-Waterman: checks the fill and walk kernels bit for
 bit against their plain versions at the SW benchmark shape (8192 pairs,
 four overhang strategies) and on the edges of the fill's warp per pair
 (reflen at the boundaries of its row chunks against altlen 1 and full,
-batches that leave a block partly filled, a filled 1536-row bucket),
-drives SWEngine on it against the native host engine and the oracle, and
-checks its edges (ties, mixed buckets, host fallback, element
-overflow).  HaplotypeCaller: drives
+batches that leave a block partly filled, a filled 1536-row bucket) and
+of the walk's warp per pair (match runs of 31-64 cells before a gap,
+gaps past 32 cells, gaps as the first and last step, walks ending on row
+0 and column 0, lengths of 1, start-cell ties, 47-53 elements, 4096
+gap-heavy pairs), drives SWEngine on it against the native host engine
+and the oracle, times its call in pieces (pack, launches, the card,
+the fetch, the decode), and checks its edges (ties, mixed buckets, host
+fallback, element overflow).  HaplotypeCaller: drives
 HaplotypeCallerCore on the port's two engines at 64 and 1024 regions.
 BWA-MEM: checks the seed-extension kernel bit for bit against its plain
 version at the extension benchmark's shape, on three edge batches and on
@@ -288,7 +292,11 @@ def sw_kernels_vs_plain(chunks, card: str):
     import torch
 
     from acc_genomics_tpu_torch.ops.sw import kernel as SK
-    from acc_genomics_tpu_torch.tools.bench_shapes import sw_fill_batches
+    from acc_genomics_tpu_torch.tools.bench_shapes import (
+        WALK_GAP_PAIRS,
+        sw_fill_batches,
+        sw_walk_batches,
+    )
 
     cells = sum(int((rl.long() * al.long()).sum()) for _, _, rl, al in chunks)
     # bytes each kernel must move: the fill reads the planes and lengths and
@@ -300,6 +308,12 @@ def sw_kernels_vs_plain(chunks, card: str):
     fill_bound = bound(2 * cells + edge, SW_OPS_PER_CELL * cells, INT32_OPS_PER_S)
     steps = sum(int(torch.maximum(rl, al).long().sum()) for _, _, rl, al in chunks)
     fill_err = walk_err = 0
+
+    def time_walk(name, ref, alt, rl, al):
+        fill = SK.sw_fill(ref, alt, rl, al, 0)
+        say(f"sw_walk on {name}: kernel_ms="
+            f"{cuda_time_ms(lambda: SK.sw_walk(*fill, rl, al, 0)):.4f} [{card}]")
+
     for strategy in (0, 1, 2, 3):
         for ref, alt, rl, al in chunks:
             f_err, w_err, walk_out = sw_fill_walk_errors(ref, alt, rl, al, strategy)
@@ -316,6 +330,18 @@ def sw_kernels_vs_plain(chunks, card: str):
         say(f"sw edges {name}: {ref.shape[0]} pairs, {ref.shape[1]} x {alt.shape[1]}; "
             f"fill and walk max_abs_err over 4 strategies {max(max(e) for e in errs)}")
         check(all(e == (0, 0) for e in errs), f"SW kernels vs plain, {name}: not bit-exact")
+        if ref.shape[1] == 1536:
+            time_walk(name, ref, alt, rl, al)
+    # the edges of the warp-per-pair walk: match runs of 31-64 cells, gaps
+    # past a round's reach, gaps first and last, ends on row 0 and column 0,
+    # lengths of 1, start-cell ties, 47-53 elements, 4096 gap-heavy pairs
+    for name, ref, alt, rl, al in sw_walk_batches(chunks[0][0].device):
+        errs = [sw_fill_walk_errors(ref, alt, rl, al, s)[:2] for s in (0, 1, 2, 3)]
+        say(f"sw walk edges {name}: {ref.shape[0]} pairs, {ref.shape[1]} x {alt.shape[1]}; "
+            f"fill and walk max_abs_err over 4 strategies {max(max(e) for e in errs)}")
+        check(all(e == (0, 0) for e in errs), f"SW kernels vs plain, {name}: not bit-exact")
+        if ref.shape[0] == WALK_GAP_PAIRS:
+            time_walk(name, ref, alt, rl, al)
 
     fills = [SK.sw_fill(*c, 0) for c in chunks]
     fill_ms = cuda_time_ms(lambda: [SK.sw_fill(*c, 0) for c in chunks])
@@ -371,7 +397,79 @@ def sw_engine_main_path(ref, alts, n_chunks: int, card: str) -> dict:
           "SWEngine vs oracle")
     say(f"SWEngine == native host on {len(alts)} pairs, == oracle on 64: ok "
         f"(stats {eng.stats})")
+    split = sw_host_split(refs, alts, first)
+    say("SWEngine call in pieces (host clocks, median of "
+        f"{E2E_REPEATS}; a synchronize after the launches): "
+        + " ".join(f"{k}_ms={v:.3f}" for k, v in split.items())
+        + f"; whole-call e2e_ms median={med * 1e3:.3f} [{card}]")
     return launches
+
+
+def sw_host_split(refs, alts, want) -> dict:
+    """The pieces of SWEngine.align (engine/sw_engine.py) on one call,
+    strategy 0, timed apart with host clocks by running its steps here as
+    the engine strings them together: grouping by bucket and the planes
+    pack into the pinned staging buffer (sw_align_batch_launch up to the
+    upload); the upload and the fill and walk launches (host time to
+    enqueue); the wait for the card; the one D2H fetch; and
+    sw_align_batch_decode.  Medians of E2E_REPEATS calls; the CIGARs must
+    equal the engine's (``want``)."""
+    import torch
+
+    from acc_genomics_tpu_torch.config import SWConfig
+    from acc_genomics_tpu_torch.engine.sw_engine import chunk_pairs
+    from acc_genomics_tpu_torch.ops.sw.batch import pack_planes, sw_align_batch_decode
+    from acc_genomics_tpu_torch.ops.sw.kernel import sw_fill, sw_walk
+
+    cfg, dev = SWConfig(), torch.device("cuda", 0)
+    bucket = lambda n: next(b for b in cfg.seq_buckets if b >= n)
+    times = {k: [] for k in ("group_pack", "launch", "device_wait", "fetch", "decode")}
+    for _ in range(E2E_REPEATS):
+        t0 = time.perf_counter()
+        groups = {}
+        for k, (r, a) in enumerate(zip(refs, alts)):
+            groups.setdefault((bucket(len(r)), bucket(len(a))), []).append(k)
+        staged = []
+        for (rows, cols), idxs in groups.items():
+            seg = chunk_pairs(rows, cols, cfg.max_batch)
+            for lo in range(0, len(idxs), seg):
+                part = idxs[lo:lo + seg]
+                n = len(part)
+                meta_at = -(-n * (rows + cols) // 16) * 16
+                buf = torch.empty(meta_at + 8 * n, dtype=torch.uint8, pin_memory=True)
+                hv = buf.numpy()
+                meta = hv[meta_at:].view(np.int32).reshape(2, n)
+                meta[0] = pack_planes([refs[k] for k in part], rows,
+                                      hv[: n * rows].reshape(n, rows))
+                meta[1] = pack_planes([alts[k] for k in part], cols,
+                                      hv[n * rows: n * (rows + cols)].reshape(n, cols))
+                staged.append((part, rows, cols, meta_at, buf))
+        t1 = time.perf_counter()
+        packed = []
+        for part, rows, cols, meta_at, buf in staged:
+            n = len(part)
+            up = buf.to(dev, non_blocking=True)
+            lens = up[meta_at:].view(torch.int32).view(2, n)
+            fill = sw_fill(up[: n * rows].view(n, rows),
+                           up[n * rows: n * (rows + cols)].view(n, cols), lens[0], lens[1], 0)
+            packed.append(sw_walk(*fill, lens[0], lens[1], 0))
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        allpacked = torch.cat(packed, 1).cpu().numpy()
+        t4 = time.perf_counter()
+        out, col = [None] * len(refs), 0
+        for part, *_ in staged:
+            walked = sw_align_batch_decode(allpacked[:, col: col + len(part)],
+                                           [refs[k] for k in part], [alts[k] for k in part], 0)
+            col += len(part)
+            for j, k in enumerate(part):
+                out[k] = walked[j]
+        t5 = time.perf_counter()
+        for key, a, b in zip(times, (t0, t1, t2, t3, t4), (t1, t2, t3, t4, t5)):
+            times[key].append((b - a) * 1e3)
+        check(out == want, "SWEngine's pieces vs the engine")
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def sw_edges():

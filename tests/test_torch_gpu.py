@@ -204,6 +204,30 @@ def test_cuda_sw_fill_warp_edges(cuda):
 
 
 @pytest.mark.gpu
+def test_cuda_sw_walk_warp_edges(cuda):
+    """The warp-a-pair walk at its edges (``sw_walk_batches``: match runs
+    of 31-64 cells, gaps past 32, gaps first and last, walks ending on row
+    0 or column 0, lengths of 1, start-cell ties, 47-53 elements, 4096
+    gap-heavy pairs) in all four strategies, on the plain fill's outputs
+    with every cell outside the pairs' regions poisoned: bit-exact against
+    the plain walk, one launch a call."""
+    from acc_genomics_tpu_torch.tools.bench_shapes import sw_walk_batches
+
+    batches = sw_walk_batches(cuda)
+    assert len(batches) == 6
+    for name, ref, alt, rl, al in batches:
+        region = SK.btrack_region(rl, al, ref.shape[1], alt.shape[1])
+        for strategy in (0, 1, 2, 3):
+            btrack, lastrow, altcol = SK.sw_fill_plain(ref, alt, rl, al, strategy)
+            btrack.masked_fill_(~region, 0x7777)
+            before = SK.LAUNCHES["sw_walk"]
+            got = SK.sw_walk(btrack, lastrow, altcol, rl, al, strategy)
+            assert SK.LAUNCHES["sw_walk"] == before + 1
+            want = SK.sw_walk_plain(btrack, lastrow, altcol, rl, al, strategy)
+            assert torch.equal(got, want), (name, strategy)
+
+
+@pytest.mark.gpu
 def test_cuda_sw_engine_matches_native_host(cuda):
     rng = np.random.default_rng(3)
     refs, alts = [], []

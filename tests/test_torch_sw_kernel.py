@@ -29,7 +29,7 @@ from acc_genomics_tpu_torch.ops.sw.batch import (
     sw_align_batch_launch,
 )
 from acc_genomics_tpu_torch.ops.sw.walker import decode_elements
-from acc_genomics_tpu_torch.tools.bench_shapes import sw_fill_batches
+from acc_genomics_tpu_torch.tools.bench_shapes import sw_fill_batches, sw_walk_batches
 
 STRATEGIES = [0, 1, 2, 3]
 CPU = torch.device("cpu")
@@ -194,6 +194,50 @@ def test_walk_matches_jax_walker(case, strategy, rng):
     assert res == w_res
     np.testing.assert_array_equal(overflow, w_overflow)
     assert overflow.any() == (case == "element_overflow")
+
+
+_WALK_EDGES = {name: (ref, alt, rl, al)
+               for name, ref, alt, rl, al in sw_walk_batches(CPU, gap_pairs=8)}
+
+
+def _plain_walk(batch, strategy):
+    ref, alt, rl, al = _WALK_EDGES[batch]
+    fill = [x.numpy() for x in K.sw_fill(ref, alt, rl, al, strategy)]
+    packed = K.sw_walk(*(torch.from_numpy(x) for x in fill), rl, al, strategy).numpy()
+    return fill, rl.numpy(), al.numpy(), packed
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("batch", sorted(_WALK_EDGES))
+def test_walk_matches_jax_walker_at_warp_edges(batch, strategy):
+    """The edges of the warp-a-pair walk (match runs of 31-64 cells, gaps
+    past 32, gaps first and last, walks ending on row 0 or column 0,
+    lengths of 1, start-cell ties, 47-53 elements, gap-heavy pairs): the
+    plain walk against the JAX walker bit for bit on the plain fill."""
+    (btrack, lastrow, altcol), rl, al, got = _plain_walk(batch, strategy)
+    want = np.asarray(sw_walk_device(
+        *_jax_walker_inputs(btrack, lastrow, altcol, rl, al), strategy))[:, : len(rl)]
+    np.testing.assert_array_equal(got, want)
+    res, overflow = decode_elements(got, len(rl))
+    assert res == jax_decode(want, len(rl))[0]
+    assert overflow.any() == batch.startswith("47/48/49/53")
+
+
+def test_walk_batches_reach_their_edges():
+    """The walk batches hold what their names say (SOFTCLIP): each run
+    pair's first walk element is a match of exactly its run, the corner
+    pairs walk one element, the 40-base gaps are single steps, and the
+    element counts are 47, 48, 49 and 53."""
+    runs = next(b for b in _WALK_EDGES if b.startswith("match runs"))
+    packed = _plain_walk(runs, 0)[3]
+    for k, run in enumerate(np.repeat([31, 32, 33, 64], 3)):
+        assert packed[0, k] == run  # state 0: a match
+        assert (packed[K.SHIP_ELEMS, k] == 1) == (k % 3 == 2)
+    gaps = next(b for b in _WALK_EDGES if b.startswith("gaps of 40"))
+    packed = _plain_walk(gaps, 0)[3]
+    assert list(packed[1, :2]) == [40 | 2 << 12, 40 | 1 << 12]  # deletion, insertion
+    counts = next(b for b in _WALK_EDGES if b.startswith("47/48/49/53"))
+    assert list(_plain_walk(counts, 0)[3][K.SHIP_ELEMS]) == [47, 48, 49, 53]
 
 
 @pytest.mark.parametrize("strategy", STRATEGIES)

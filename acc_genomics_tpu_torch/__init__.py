@@ -37,9 +37,13 @@ Layout:
   models/          HaplotypeCallerCore on SW + PairHMM; BwaMemSeeding on
                    SMEM + extension; BwaMemDevicePipeline (SMEM arrays ->
                    seed enumeration -> one fused extension launch)
+  parallel/        the (data, seq) mesh and the sharded forms; service.py,
+                   the engine daemon and its client over TCP
+  drivers/         the oracle-checked drivers, one module an engine or model
+  entry.py         the entry check: entry() and dryrun_multichip(n)
   io/              synthetic generators (copy, plus gen_region), PairHMM
-                   text and BWA-SW record IO (copies)
-  utils/           base codes, host timers (copies)
+                   text, BWA-SW record and BWA index IO (copies)
+  utils/           base codes, host timers (copies), device_trace
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,10 @@ The port of ``acc_genomics_tpu/engine/pairhmm_engine.py`` (the redesign
 of the reference's FalconPairHMM::computePairhmm dispatch):
 
 * length bucketing (engine/bucketing.py) and haplen-sorted lanes;
-* a static cell gate: small batches run on the native host engine;
+* a dispatch gate (the worthFPGA analog): small batches of the dict path
+  run on the native host engine, under a static cell count or, once a
+  calibrated ``DispatchCostModel`` is installed (``set_cost_model``,
+  ``calibrate_dispatch``), when its predicted host time is the shorter;
 * pairs beyond the largest bucket run on the native host engine, on a
   worker thread concurrent with the device buckets;
 * with a ``mesh`` (``parallel/mesh.py``), the buckets are packed as fp32
@@ -16,7 +19,10 @@ of the reference's FalconPairHMM::computePairhmm dispatch):
   (``pairhmm_forward_dpsp_from_quals``) at a chunk of ``sp_chunk_rows``
   rows; the flat entry points take the dict path;
 * the device route ships uint8 byte planes (quals, codes, hap) and the
-  kernel expands the coefficients itself (``config.quals_expand``);
+  kernel expands the coefficients itself (``config.quals_expand``); with
+  ``config.upload="f32"`` the flat path ships the native fp32 coefficient
+  pack instead and runs the kernel's coefficient front end
+  (``pairhmm_forward``); the dict path ships byte planes either way;
 * fp32 results below ``config.min_accepted`` are recomputed in fp64 on
   the host (native), and the output is log10(result) - log10(IC).
 
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import threading
 import time
 from typing import List, Optional, Sequence
@@ -41,9 +48,13 @@ import torch
 from acc_genomics_tpu_torch.build import ensure_native
 from acc_genomics_tpu_torch.device import resolve_device
 from acc_genomics_tpu_torch.engine.bucketing import plan_buckets
+from acc_genomics_tpu_torch.io.synth import gen_pairhmm_pairs
 from acc_genomics_tpu_torch.ops.pairhmm.band_kernel import CHUNK_ROWS
 from acc_genomics_tpu_torch.ops.pairhmm.convert import batch_to_torch, context_tables
-from acc_genomics_tpu_torch.ops.pairhmm.kernel import pairhmm_forward_from_quals
+from acc_genomics_tpu_torch.ops.pairhmm.kernel import (
+    pairhmm_forward,
+    pairhmm_forward_from_quals,
+)
 from acc_genomics_tpu_torch import native
 from acc_genomics_tpu_torch.config import PairHMMConfig
 from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext
@@ -69,6 +80,97 @@ def sp_chunk_rows(rows: int) -> int:
         if rows % c == 0:
             return c
     raise ValueError(f"rows {rows} must divide by a chunk size of {CHUNK_ROWS}")
+
+
+@dataclasses.dataclass
+class DispatchCostModel:
+    """Calibrated host-vs-device dispatch gate, the worthFPGA analog
+    (FalconPairHMM.cpp:112-139, which compares the measured AVX time
+    against PCIe + prep + compute + recompute with live constants).
+    Predicted times:
+
+        host_s(cells)          = cells / (host_gcups * cores)
+        device_s(cells, bytes) = fixed_s + cells / device_gcups
+                                         + bytes / link_gb_s
+
+    ``host_gcups``: the native forward's rate on ``cores`` cores; ``device_gcups``:
+    the kernel's rate on the engine's buckets; ``link_gb_s``: the H2D
+    rate; ``fixed_s``: launch, copies and synchronisation of one engine
+    call.  :meth:`from_e2e_bench` takes a PairHMM end-to-end bench's
+    result dict, :meth:`calibrate` measures the host and the link here.
+    """
+
+    # defaults: chip_smoke.py's phase 16 (calibrate_dispatch on the card)
+    # on one NVIDIA H100 80GB HBM3 at 700.00 W and its 8-core host, the
+    # run of 2026-10-17; calibrate() measures the host and the link anew
+    host_gcups: float = 0.5522  # the native forward on 64 pairs, all threads
+    device_gcups: float = 555.725  # the kernel on the 16,384-pair engine batch
+    link_gb_s: float = 32.825  # 4 MiB pinned H2D, synchronised
+    fixed_s: float = 0.005022  # a 16-pair call on the card, less its cells
+    cores: int = 1
+
+    def host_s(self, cells: int) -> float:
+        return cells / (self.host_gcups * max(self.cores, 1)) / 1e9
+
+    def device_s(self, cells: int, nbytes: int) -> float:
+        return (
+            self.fixed_s
+            + cells / self.device_gcups / 1e9
+            + nbytes / (self.link_gb_s * 1e9)
+        )
+
+    def device_worthwhile(self, cells: int, nbytes: int) -> bool:
+        return self.device_s(cells, nbytes) < self.host_s(cells)
+
+    @classmethod
+    def from_e2e_bench(cls, res: dict, cores: Optional[int] = None) -> "DispatchCostModel":
+        """Build from a PairHMM end-to-end bench's result dict (keys
+        ``cells``, ``n_batches``, ``link_gcups``, ``device_gcups``, and
+        ``host_gcups`` and ``single_batch_latency_s`` where measured)."""
+        cells = res["cells"] / max(res.get("n_batches", 8), 1)
+        # link_gcups = cells a batch per link-second at ~44 cells a byte
+        link_gb_s = res["link_gcups"] * 1e9 / 44 / 1e9
+        latency_s = res.get("single_batch_latency_s",
+                            cls.fixed_s + cells / res["device_gcups"] / 1e9)
+        return cls(
+            host_gcups=max(res.get("host_gcups", cls.host_gcups), 1e-3),
+            device_gcups=res["device_gcups"],
+            link_gb_s=max(link_gb_s, 1e-4),
+            fixed_s=max(latency_s - cells / res["device_gcups"] / 1e9, 1e-3),
+            cores=cores or os.cpu_count() or 1,
+        )
+
+    def calibrate(self, device) -> "DispatchCostModel":
+        """Measure the host rate (the native forward on 64 pairs, after a
+        warm call) and the link rate (a 4 MiB copy from pinned host
+        memory to ``device``, synchronised) on this host; the device
+        rate and the fixed cost stay as set.  The native forward runs on
+        all of the host's threads, so the measured rate is the whole
+        host's and ``cores`` is 1 (the JAX package's calibrate multiplies
+        it by the core count once more)."""
+        device = resolve_device(device)
+        tcs = gen_pairhmm_pairs(np.random.default_rng(0), 64, max_read_len=120,
+                                max_hap_len=300)
+        cells = sum(len(t["rs"]) * len(t["hap"]) for t in tcs)
+        native.pairhmm_forward(tcs, np.float32)  # warm
+        t0 = time.perf_counter()
+        native.pairhmm_forward(tcs, np.float32)
+        host = cells / (time.perf_counter() - t0) / 1e9
+        cuda = device.type == "cuda"
+        buf = torch.zeros(4 << 20, dtype=torch.uint8, pin_memory=cuda)
+
+        def copy():
+            buf.to(device, non_blocking=cuda, copy=True)
+            if cuda:
+                torch.cuda.synchronize(device)
+
+        copy()  # warm
+        t0 = time.perf_counter()
+        copy()
+        dt = time.perf_counter() - t0
+        return dataclasses.replace(
+            self, host_gcups=host, link_gb_s=max(buf.numel() / dt / 1e9, 1e-4), cores=1,
+        )
 
 
 @dataclasses.dataclass
@@ -126,11 +228,8 @@ class PairHMMEngine:
     def __init__(
         self, config: PairHMMConfig = PairHMMConfig(), device="cuda", mesh=None,
     ):
-        if config.upload != "quals":
-            raise ValueError(
-                "upload='f32' is not ported: the device route ships byte "
-                "planes and expands coefficients in the kernel"
-            )
+        if config.upload not in ("quals", "f32"):
+            raise ValueError(f"upload {config.upload!r}")
         if config.quals_expand not in ("arith", "gather"):
             raise ValueError(f"quals_expand {config.quals_expand!r}")
         self.config = config
@@ -142,9 +241,11 @@ class PairHMMEngine:
                 "recompute need it"
             )
         self.ctx32 = PairHMMContext(np.float32)
-        # dispatch gate (worthFPGA analog): batches under this many cells
-        # run on the native host engine
+        # dispatch gate (worthFPGA analog), two tiers: the static cell
+        # count below, and, once a calibrated DispatchCostModel is
+        # installed, its predicted host and device times
         self.min_device_cells = 2_000_000
+        self.cost_model: Optional[DispatchCostModel] = None
         self.stats = {"pairs": 0, "recomputed": 0, "cells": 0, "device_calls": 0}
         ph2pr, m2m, _ = context_tables(self.ctx32, self.device)
         self._tables = (ph2pr, m2m)
@@ -164,6 +265,24 @@ class PairHMMEngine:
         for k in self.anatomy:
             self.anatomy[k] = 0.0
 
+    # -- dispatch calibration ---------------------------------------------
+
+    def set_cost_model(self, model: Optional[DispatchCostModel]):
+        """Install (or clear, with None) the calibrated dispatch gate."""
+        self.cost_model = model
+
+    def calibrate_dispatch(
+        self, device_gcups: Optional[float] = None, fixed_s: Optional[float] = None,
+    ) -> DispatchCostModel:
+        """Measure the host and link constants on this host
+        (``DispatchCostModel.calibrate`` on the engine's device) and install
+        the calibrated gate.  ``device_gcups`` and ``fixed_s`` default to
+        the model's, measured on an H100."""
+        given = dict(device_gcups=device_gcups, fixed_s=fixed_s)
+        base = DispatchCostModel(**{k: v for k, v in given.items() if v is not None})
+        self.cost_model = base.calibrate(self.device)
+        return self.cost_model
+
     def _on_stream(self):
         if self._stream is None:
             return contextlib.nullcontext()
@@ -171,10 +290,33 @@ class PairHMMEngine:
 
     # -- device route -----------------------------------------------------
 
+    def _stage_and_run(self, sels, nbytes: int, fill, run) -> _Pending:
+        """One host buffer of ``nbytes`` (pinned on CUDA) filled by
+        ``fill(view)``, one H2D copy of it, ``run(device_buffer)`` launching
+        one result tensor a bucket on the engine's stream, and one D2H copy
+        of all results, which the returned _Pending waits for."""
+        with Timer("pairhmm.stage"):
+            staged = torch.empty(nbytes, dtype=torch.uint8, pin_memory=self._cuda)
+            fill(staged.numpy())
+        with self._on_stream():
+            dev = staged.to(self.device, non_blocking=True)
+            allres = torch.cat(run(dev))
+            done = None
+            if self._cuda:
+                out_host = torch.empty(
+                    allres.shape, dtype=allres.dtype, pin_memory=True
+                )
+                out_host.copy_(allres, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._stream)
+            else:
+                out_host = allres
+        return _Pending(list(sels), out_host, done, staged, nbytes)
+
     def _launch(self, buckets: Sequence[_Bucket]) -> _Pending:
-        """Stage every bucket in one host buffer, upload it once, launch
-        one kernel (or one band pipeline) per bucket and start one D2H
-        copy of all results."""
+        """Stage every bucket's byte planes in one host buffer, upload it
+        once, launch one kernel (or one band pipeline) per bucket and
+        start one D2H copy of all results."""
         u8_offs, off = [], 0
         for b in buckets:
             u8_offs.append(off)
@@ -184,20 +326,21 @@ class PairHMMEngine:
         for b in buckets:
             meta_offs.append(off)
             off += 8 * len(b.lens)
-        staged = torch.empty(off, dtype=torch.uint8, pin_memory=self._cuda)
-        hv = staged.numpy()
-        for b, uo, mo in zip(buckets, u8_offs, meta_offs):
-            o = uo
-            for p in b.planes:
-                hv[o : o + p.size] = p.reshape(-1)
-                o += p.size
-            meta = hv[mo : mo + 8 * len(b.lens)].view(np.int32)
-            meta[: len(b.lens)] = b.lens
-            meta[len(b.lens) :] = b.hlens
+
+        def fill(hv):
+            for b, uo, mo in zip(buckets, u8_offs, meta_offs):
+                o = uo
+                for p in b.planes:
+                    hv[o : o + p.size] = p.reshape(-1)
+                    o += p.size
+                meta = hv[mo : mo + 8 * len(b.lens)].view(np.int32)
+                meta[: len(b.lens)] = b.lens
+                meta[len(b.lens) :] = b.hlens
+
         expand = self.config.quals_expand
         ic = float(self.ctx32.initial_constant)
-        with self._on_stream():
-            dev = staged.to(self.device, non_blocking=True)
+
+        def run(dev):
             outs = []
             for b, uo, mo in zip(buckets, u8_offs, meta_offs):
                 rows, bp = b.rows, len(b.lens)
@@ -218,18 +361,53 @@ class PairHMMEngine:
                     )
                     self.stats["device_calls"] += 1
                 outs.append(res[: len(b.sel)])
-            allres = torch.cat(outs)
-            done = None
-            if self._cuda:
-                out_host = torch.empty(
-                    allres.shape, dtype=allres.dtype, pin_memory=True
+            return outs
+
+        return self._stage_and_run([b.sel for b in buckets], off, fill, run)
+
+    def _launch_f32(self, streams, groups) -> _Pending:
+        """The f32 upload: each bucket's native fp32 coefficient pack
+        (``native.pairhmm_pack_flat_f32``) written straight into one
+        staged buffer, one H2D copy, one launch of the coefficient front
+        end (``pairhmm_forward``) per bucket.  ``streams``: the flat
+        (rs, q, i, d, c, offs, lens, hap, hoffs, hlens); ``groups``:
+        (sel, rows, cols) per bucket, sel in launch order."""
+        rs, q, i, d, c, offs, lens, hap, hoffs, hlens = streams
+        regions, off = [], 0
+        for sel, rows, cols in groups:
+            nf = (8 * rows + 1) * len(sel)
+            regions.append((off, off + 4 * nf))
+            off += 4 * (nf + (2 * rows + cols) * len(sel))
+        ctx = self.ctx32
+
+        def fill(hv):
+            for (sel, rows, cols), (fo, io) in zip(groups, regions):
+                bp = len(sel)
+                out_f = hv[fo:io].view(np.float32).reshape(8 * rows + 1, bp)
+                out_i = hv[io : io + 4 * (2 * rows + cols) * bp].view(np.int32)
+                packed = native.pairhmm_pack_flat_f32(
+                    rs, q, i, d, c, offs[sel], lens[sel], hap, hoffs[sel],
+                    hlens[sel], rows, cols, ctx.ph2pr, ctx.match_to_match,
+                    ctx.initial_constant, out_f=out_f,
+                    out_i=out_i.reshape(2 * rows + cols, bp),
                 )
-                out_host.copy_(allres, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(self._stream)
-            else:
-                out_host = allres
-        return _Pending([b.sel for b in buckets], out_host, done, staged, off)
+                if packed is None:
+                    raise RuntimeError("upload='f32' needs the native host library")
+
+        def run(dev):
+            outs = []
+            for (sel, rows, cols), (fo, io) in zip(groups, regions):
+                bp = len(sel)
+                big_f = dev[fo:io].view(torch.float32).view(8 * rows + 1, bp)
+                big_i = dev[io : io + 4 * (2 * rows + cols) * bp].view(
+                    torch.int32).view(2 * rows + cols, bp)
+                planes = [big_f[k * rows : (k + 1) * rows] for k in range(8)]
+                outs.append(pairhmm_forward(
+                    *planes, big_i[:rows], big_i[rows:], big_f[8 * rows]))
+                self.stats["device_calls"] += 1
+            return outs
+
+        return self._stage_and_run([g[0] for g in groups], off, fill, run)
 
     # -- dict path ----------------------------------------------------------
 
@@ -244,7 +422,14 @@ class PairHMMEngine:
         hap_lens = [len(t["hap"]) for t in testcases]
 
         total_cells = sum(r * h for r, h in zip(read_lens, hap_lens))
-        if total_cells < self.min_device_cells:
+        if self.cost_model is not None:
+            # the byte-plane upload: five planes a read, one a hap, the
+            # int32 side-band
+            est_bytes = 5 * sum(read_lens) + sum(hap_lens) + 12 * n
+            use_host = not self.cost_model.device_worthwhile(total_cells, est_bytes)
+        else:
+            use_host = total_cells < self.min_device_cells
+        if use_host:
             host = native.pairhmm_forward(testcases, np.float32)
             self.stats["host_native_calls"] = (
                 self.stats.get("host_native_calls", 0) + 1
@@ -501,37 +686,40 @@ class PairHMMEngine:
             host_thread.start()
 
         code = rb * (len(cbuckets) + 1) + cb  # group id per pair
+        streams = (rs, q, i, d, c, offs, lens, hap, hoffs, hlens)
+        groups = []
+        for g in np.unique(code[~over]):
+            idxs = np.flatnonzero((code == g) & ~over)
+            gr, gc = divmod(int(g), len(cbuckets) + 1)
+            rows, cols = int(rbuckets[gr]), int(cbuckets[gc])
+            max_pairs = self.config.max_batch_pairs
+            for lo in range(0, len(idxs), max_pairs):
+                sel = idxs[lo : lo + max_pairs]
+                # longest haplotypes launch first (tail balance)
+                groups.append((sel[np.argsort(-hlens[sel], kind="stable")], rows, cols))
         pending = None
         with Timer("pairhmm.device"):
-            buckets = []
-            for g in np.unique(code[~over]):
-                idxs = np.flatnonzero((code == g) & ~over)
-                gr, gc = divmod(int(g), len(cbuckets) + 1)
-                rows = int(rbuckets[gr])
-                cols = int(cbuckets[gc])
-                max_pairs = self.config.max_batch_pairs
-                for lo in range(0, len(idxs), max_pairs):
-                    sel = idxs[lo : lo + max_pairs]
-                    # longest haplotypes launch first (tail balance)
-                    sel = sel[np.argsort(-hlens[sel], kind="stable")]
-                    g_lens = np.ascontiguousarray(lens[sel])
-                    g_hlens = np.ascontiguousarray(hlens[sel])
-                    packed = native.pairhmm_pack_quals_flat(
-                        rs, q, i, d, c, np.ascontiguousarray(offs[sel]), g_lens,
-                        hap, np.ascontiguousarray(hoffs[sel]), g_hlens,
-                        rows, cols, HAP_PAD,
-                    )
-                    big = packed[0].base  # the one (6*rows + cols, bp) buffer
-                    buckets.append(_Bucket(sel, [big], g_lens, g_hlens, rows))
-            if buckets:
+            if groups and self.config.upload == "f32":
+                pending = self._launch_f32(streams, groups)
+            elif groups:
+                buckets = []
+                with Timer("pairhmm.pack"):
+                    for sel, rows, cols in groups:
+                        g_lens = np.ascontiguousarray(lens[sel])
+                        g_hlens = np.ascontiguousarray(hlens[sel])
+                        packed = native.pairhmm_pack_quals_flat(
+                            rs, q, i, d, c, np.ascontiguousarray(offs[sel]), g_lens,
+                            hap, np.ascontiguousarray(hoffs[sel]), g_hlens,
+                            rows, cols, HAP_PAD,
+                        )
+                        big = packed[0].base  # the one (6*rows + cols, bp) buffer
+                        buckets.append(_Bucket(sel, [big], g_lens, g_hlens, rows))
                 pending = self._launch(buckets)
+            if pending is not None:
                 self.stats["h2d_bytes"] = (
                     self.stats.get("h2d_bytes", 0) + pending.h2d_bytes
                 )
-        return _FlatBatch(
-            (rs, q, i, d, c, offs, lens, hap, hoffs, hlens),
-            raw, pending, host_thread, host_err,
-        )
+        return _FlatBatch(streams, raw, pending, host_thread, host_err)
 
     def _flat_finalize(self, batch) -> np.ndarray:
         """Fetch + scatter + fp64 epilogue for a _flat_launch result."""

@@ -161,11 +161,18 @@ class SmemEngine:
 
     def collect(self, reads: Sequence[np.ndarray]) -> List[List[dict]]:
         """3-pass SMEM intervals of each read, as interval dicts."""
-        self.stats["reads"] += len(reads)
+        return split_dicts(*self.collect_flat(reads))
+
+    def collect_flat(self, reads: Sequence[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+        """The intervals of ``collect`` as arrays: (flat (tot, 5) int64
+        [x0, x1, s, start, end], read-major in read order and each read's
+        in the oracle's order; counts (N,) int64)."""
+        n = len(reads)
+        self.stats["reads"] += n
         seq_len = self.config.seq_length
         buckets = self._buckets()
-        out: List = [None] * len(reads)
-        lens = np.fromiter((len(r) for r in reads), np.int64, len(reads))
+        host_out = {}  # read index -> its (k, 5) intervals from the host
+        lens = np.fromiter((len(r) for r in reads), np.int64, n)
         host_idx = np.flatnonzero(lens > seq_len).tolist()
         which = np.searchsorted(buckets, lens)  # the first bucket >= len
         groups = {buckets[b]: np.flatnonzero(which == b).tolist()
@@ -173,7 +180,9 @@ class SmemEngine:
 
         def host_work(idx):
             for k, res in zip(idx, self._host([reads[k] for k in idx])):
-                out[k] = res
+                host_out[k] = np.array(
+                    [[iv["x0"], iv["x1"], iv["s"], iv["start"], iv["end"]] for iv in res],
+                    np.int64).reshape(-1, 5)
 
         # host reruns on one worker thread beside the device work (the
         # ctypes call releases the GIL)
@@ -194,13 +203,26 @@ class SmemEngine:
             if rerun:
                 self.stats["overflow_reruns"] += len(rerun)
                 futures.append(pool.submit(host_work, rerun))
-            for k, f, ivs in zip(order, flags, split_dicts(flat, live)):
-                if not f:
-                    out[k] = ivs
             with Timer("smem.host_join"):
                 for f in futures:
                     f.result()  # re-raises a host error
-        return out
+        # each read's (start, count) in the device rows, then the host's
+        counts = np.zeros(n, np.int64)
+        starts = np.zeros(n, np.int64)
+        order = np.asarray(order, np.int64)
+        on_card = ~flags
+        counts[order[on_card]] = live[on_card]
+        starts[order[on_card]] = (np.cumsum(live) - live)[on_card]
+        parts = [flat.astype(np.int64)]
+        if host_out:
+            hk = np.fromiter(host_out, np.int64, len(host_out))
+            hc = np.fromiter((len(host_out[k]) for k in hk), np.int64, len(hk))
+            counts[hk] = hc
+            starts[hk] = len(flat) + np.cumsum(hc) - hc
+            parts += [host_out[k] for k in hk]
+        rows = np.repeat(starts - (np.cumsum(counts) - counts), counts)
+        rows += np.arange(len(rows))
+        return np.concatenate(parts)[rows], counts
 
     def collect_arrays(self, seq_tm: np.ndarray, lens: np.ndarray):
         """Raw-array collection for device pipelines: seq_tm (L, B) uint8

@@ -63,6 +63,11 @@ def load(path: str) -> ctypes.CDLL:
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_uint8,
         _i8p, _i8p, _i8p, _i8p, _i8p, _i8p,
     ]
+    lib.pairhmm_expand_quals.argtypes = [
+        _i8p, _i8p, _i8p, _i8p, _i8p, _i8p, _i32p, _i32p,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        _f32p, _f32p, ctypes.c_float, _f32p, _i32p,
+    ]
     lib.smem_collect_batch_native.argtypes = [
         _i32p, ctypes.c_int64, ctypes.c_int64, _i64p,
         _i8p, _i64p, _i32p, ctypes.c_int32,
@@ -195,6 +200,49 @@ def pairhmm_pack_quals_flat(
         ors.reshape(-1), hap_ext.reshape(-1),
     )
     return oq, oi, od, oc, ors, hap_ext
+
+
+def pairhmm_pack_flat_f32(
+    rs, q, i, d, c, offs, lens, hap, hoffs, hlens, rows, cols,
+    ph2pr, m2m, initial_constant, out_f=None, out_i=None,
+):
+    """Flat-input fp32 coefficient pack into two contiguous buffers:
+
+    big_f   (8*rows + 1, bp) float32: the p_mm p_gapm p_mx p_xx p_my p_yy
+            em_match em_mis planes, then y0 in row 8*rows
+    big_i   (rows + rows + cols, bp) int32: rs codes, then hap_ext
+
+    The byte-plane pack runs first, then the table expansion.  ``out_f``
+    and ``out_i`` (C-contiguous, of those shapes) receive the pack in
+    place, e.g. views of a pinned staging buffer.  Returns (big_f, big_i)
+    or None if the lib is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    packed = pairhmm_pack_quals_flat(
+        rs, q, i, d, c, offs, lens, hap, hoffs, hlens, rows, cols, 5
+    )
+    oq, oi, od, oc, ors, hap_ext_u8 = packed
+    bp = len(lens)
+    ndiag = rows + cols
+    big_f = np.empty((8 * rows + 1, bp), np.float32) if out_f is None else out_f
+    big_i = np.empty((rows + ndiag, bp), np.int32) if out_i is None else out_i
+    if (big_f.shape != (8 * rows + 1, bp) or big_i.shape != (rows + ndiag, bp)
+            or not (big_f.flags.c_contiguous and big_i.flags.c_contiguous)):
+        raise ValueError(f"out buffers {big_f.shape}, {big_i.shape} for rows {rows}, "
+                         f"cols {cols}, {bp} lanes (C-contiguous)")
+    lib.pairhmm_expand_quals(
+        oq.reshape(-1), oi.reshape(-1), od.reshape(-1), oc.reshape(-1),
+        ors.reshape(-1), hap_ext_u8.reshape(-1),
+        np.ascontiguousarray(lens, np.int32),
+        np.ascontiguousarray(hlens, np.int32),
+        rows, cols, bp,
+        np.ascontiguousarray(ph2pr, np.float32),
+        np.ascontiguousarray(m2m, np.float32),
+        float(initial_constant),
+        big_f.reshape(-1), big_i.reshape(-1),
+    )
+    return big_f, big_i
 
 
 def _flat_pairs(testcases, rows, cols, pad_to):

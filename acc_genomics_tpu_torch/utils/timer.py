@@ -4,14 +4,15 @@ throughput scoreboard.
 The counterpart of the reference's acc_lib/Timer.h PLACE_TIMER macros
 and the per-invocation GCUPS accounting done from OpenCL events
 (pairhmm/host/PairHMMFpga.cpp:90-96, smem/host/ocl.cpp:339-344).  Host
-clocks only: device time comes from CUDA events or torch.profiler.
+clocks only: device time comes from CUDA events or ``device_trace``.
 """
 
 from __future__ import annotations
 
 import collections
+import os
 import time
-from contextlib import ContextDecorator
+from contextlib import ContextDecorator, contextmanager
 from typing import Dict
 
 _totals: Dict[str, float] = collections.defaultdict(float)
@@ -69,3 +70,24 @@ class Scoreboard:
 
 scoreboard = Scoreboard
 
+
+@contextmanager
+def device_trace(logdir: str, device="cuda"):
+    """torch.profiler trace of the block: CPU activity, plus the card's
+    kernels and copies when ``device`` is a CUDA device; on exit the trace
+    is written as a Chrome trace file (``trace-<pid>-<ns>.json``) under
+    ``logdir``.  The counterpart of the reference's SDAccel timeline
+    traces.  Usage: ``with device_trace("traces", eng.device) as prof:
+    eng.pairhmm_matrix(...)``; ``prof.key_averages()`` sums the events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from acc_genomics_tpu_torch.device import resolve_device
+
+    activities = [ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(
+        os.path.join(logdir, f"trace-{os.getpid()}-{time.time_ns()}.json"))

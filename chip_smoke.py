@@ -49,7 +49,14 @@ at C = 8, 16 and 32, fp32 planes at the engine's C) and times the
 pipeline at each C, drives PairHMMEngine(mesh=...) on 2,048 pairs whose
 haplotypes are all past 1024 columns against the native host engine and
 the oracle, holds SP against the DP kernel on pairs that fit, and checks
-the edges and GenomicsEngine(mesh=...).
+the edges and GenomicsEngine(mesh=...).  The rest of PairHMMEngine:
+upload="f32" on the engine batch against the byte-plane route, the
+dispatch gate calibrated on the card and routing by it.  The service:
+EngineServer around the 100 Mbp GenomicsEngine, one request at each
+engine's main-path shape equal to the direct call and the native host,
+round trips against direct calls, an index loaded by path, the CLI
+daemon and concurrent clients.  Then each port driver at small sizes,
+entry() and dryrun_multichip(4) on the one card.
 Any failed check raises, so the exit code is non-zero.  The last line of
 standard output is one JSON object naming the device; the line before it
 lists each kernel of the main paths with its launches, error, times and
@@ -65,9 +72,12 @@ from __future__ import annotations
 import concurrent.futures
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -836,7 +846,9 @@ def smem_bwa_phases(card: str, dev, extend_entry: dict) -> dict:
     plain version, SmemEngine on the card and its edges, BwaMemSeeding on
     GenomicsEngine, then BwaMemDevicePipeline (``pipeline_phase``).  Adds
     phase 13's extension launches to ``extend_entry`` and returns the
-    kernels-line entries of the SMEM and the fused extension kernels."""
+    kernels-line entries of the SMEM and the fused extension kernels, and
+    (phase 13's GenomicsEngine, the index, the 65,536 reads) for the
+    service phase."""
     import torch
 
     from acc_genomics_tpu_torch.engine.genomics_engine import GenomicsEngine
@@ -977,7 +989,7 @@ def smem_bwa_phases(card: str, dev, extend_entry: dict) -> dict:
                   "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms, **smem_bound}
 
     fused_entry = pipeline_phase(card, engines, fm, genome, bwa_reads, first, smem_entry)
-    return smem_entry, fused_entry
+    return smem_entry, fused_entry, (engines, fm, reads)
 
 
 def pipeline_phase(card: str, engines, fm, genome, bwa_reads, seeding_hits,
@@ -1420,6 +1432,424 @@ def mesh_phase(card: str, dev) -> dict:
             "front_bound_ms": front_bound["bound_ms"], "front_bound_by": front_bound["bound_by"]}
 
 
+LAUNCH_MODULES = ("pairhmm.kernel", "pairhmm.band_kernel", "sw.kernel", "extend.kernel",
+                  "smem.kernel")
+
+
+def clear_launches():
+    import importlib
+
+    for m in LAUNCH_MODULES:
+        importlib.import_module(f"acc_genomics_tpu_torch.ops.{m}").LAUNCHES.clear()
+
+
+def read_launches() -> dict:
+    """Every kernel wrapper's launch count since ``clear_launches``."""
+    import importlib
+
+    out = {}
+    for m in LAUNCH_MODULES:
+        out.update(importlib.import_module(f"acc_genomics_tpu_torch.ops.{m}").LAUNCHES)
+    return {k: v for k, v in out.items() if v}
+
+
+def add_launches(total: dict, run: dict):
+    for k, v in run.items():
+        total[k] = total.get(k, 0) + v
+
+
+def host_median_s(fn, repeats: int = 5) -> float:
+    """Median host-clock seconds of fn() (after one warm call)."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def crossover_cells(model) -> int:
+    """The batch in cells from which the model prefers the card, by the
+    bisection of benchmarks/pairhmm_e2e_bench.py:181-190."""
+    lo, hi = 1_000, 10_000_000_000
+    while hi / lo > 1.01:
+        mid = int((lo * hi) ** 0.5)
+        if model.device_worthwhile(mid, mid // 40):
+            hi = mid
+        else:
+            lo = mid
+    return hi
+
+
+def dispatch_phase(card: str, f0, reads, haps, lik_arith, lik_gather, batch_cells: int,
+                   k_ms: float) -> dict:
+    """Phase 16, the rest of PairHMMEngine: upload="f32" on the engine batch
+    against the byte-plane route (gather rtol 1e-6, arith 2e-4) and 16
+    oracle pairs, timed in turns with it; calibrate_dispatch on the card
+    (the kernel's rate on the engine's buckets, the fixed cost of a
+    16-pair call, the host and link measured by the model) and its
+    crossover; routing by the calibrated model on a small batch and on the
+    engine batch.  Returns the launches of its paths."""
+    import torch
+
+    from acc_genomics_tpu_torch.config import PairHMMConfig
+    from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
+    from acc_genomics_tpu_torch.io.synth import gen_pairhmm_pairs
+    from acc_genomics_tpu_torch.utils.timer import device_trace, reset_timers, timers
+
+    launches = {}
+    # -- 16a. upload="f32" ---------------------------------------------------------
+    f32 = PairHMMEngine(PairHMMConfig(upload="f32"), device="cuda")
+    quals = PairHMMEngine(device="cuda")
+    got = f32.compute_matrix_flat(*f0)  # warm-up
+    quals.compute_matrix_flat(*f0)
+    torch.cuda.synchronize()
+    n_buckets, n_quals = f32.stats["device_calls"], quals.stats["device_calls"]
+    h2d = {"f32": f32.stats["h2d_bytes"], "quals": quals.stats["h2d_bytes"]}
+    clear_launches()
+    times = {"f32": [], "quals": []}
+    # the launch side's host timers a call: "pairhmm.device" = pack, stage,
+    # H2D and launches; "pairhmm.pack" the byte planes' native pack;
+    # "pairhmm.stage" the pinned buffer and its fill (the f32 pack itself)
+    sides = {"f32": [], "quals": []}
+    for order in (("quals", "f32"), ("f32", "quals")) * 3:  # in turns
+        for name in order:
+            eng = f32 if name == "f32" else quals
+            reset_timers()
+            t0 = time.perf_counter()
+            res = eng.compute_matrix_flat(*f0)
+            times[name].append(time.perf_counter() - t0)
+            sides[name].append({k: v["total_s"] for k, v in timers().items()})
+            if name == "f32":
+                check(res.tobytes() == got.tobytes(), "repeated f32 calls differ")
+    run = read_launches()
+    check(run.get("pairhmm_forward") == 6 * n_buckets
+          and run.get("pairhmm_forward_from_quals") == 6 * n_quals,
+          f"f32 / byte-plane launches {run} for {n_buckets} buckets")
+    launches["pairhmm_forward"] = run["pairhmm_forward"]
+    rel_g = float(np.max(np.abs(got - lik_gather) / np.abs(lik_gather)))
+    rel_a = float(np.max(np.abs(got - lik_arith) / np.abs(lik_arith)))
+    tcs = [dict(hap=h, **r) for r in reads for h in haps]
+    sample = np.random.default_rng(6).choice(len(tcs), 16, replace=False)
+    orc = oracle([tcs[k] for k in sample])
+    rel_o = float(np.max(np.abs(got.reshape(-1)[sample] - orc) / np.abs(orc)))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    say(f"upload=f32 on the engine batch: {n_buckets} launches of the coefficient front end "
+        f"a call; vs byte planes (gather) max_rel={rel_g:.3e}, (arith) max_rel={rel_a:.3e}, "
+        f"vs fp64 oracle (16 pairs) max_rel={rel_o:.3e}; e2e_s median f32={med['f32']:.5f} "
+        f"(min {min(times['f32']):.5f} max {max(times['f32']):.5f}) byte planes="
+        f"{med['quals']:.5f} (min {min(times['quals']):.5f} max {max(times['quals']):.5f}) "
+        f"(n=6 each, in turns); gcups f32={batch_cells / med['f32'] / 1e9:.3f} byte planes="
+        f"{batch_cells / med['quals'] / 1e9:.3f}; h2d_bytes a call f32={h2d['f32']} "
+        f"byte planes={h2d['quals']} [{card}]")
+    for name in ("f32", "quals"):
+        keys = sorted({k for t in sides[name] for k in t})
+        say(f"upload {name}: host timers a call, median of 6 (s): "
+            + " ".join(f"{k}={statistics.median(t.get(k, 0.0) for t in sides[name]):.5f}"
+                       for k in keys) + f" [{card}]")
+    check(rel_g < 1e-6 and rel_a < 2e-4 and rel_o < RTOL_ORACLE, "f32 route tolerances")
+
+    # does torch.profiler see the card on this host? (utils/timer.device_trace)
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp, "cuda") as prof:
+            quals.compute_matrix_flat(*f0)
+            torch.cuda.synchronize()
+        traces = os.listdir(tmp)
+    dev_rows = [(e.key, getattr(e, "device_time_total", 0.0)) for e in prof.key_averages()
+                if getattr(e, "device_time_total", 0.0) > 0]
+    dev_rows.sort(key=lambda r: -r[1])
+    say(f"device_trace over one byte-plane call: {len(traces)} trace file(s), "
+        f"{len(prof.key_averages())} event kinds, {len(dev_rows)} with device time; the "
+        f"longest (us) {[(k[:48], round(t, 1)) for k, t in dev_rows[:4]]} [{card}]")
+
+    # -- 16b. calibrate_dispatch on the card ---------------------------------------
+    small = gen_pairhmm_pairs(np.random.default_rng(5), 16, max_read_len=100, max_hap_len=300)
+    small_cells = sum(len(t["rs"]) * len(t["hap"]) for t in small)
+    probe = PairHMMEngine(device="cuda")
+    probe.min_device_cells = 0
+    call_s = host_median_s(lambda: probe.compute_pairs(small), repeats=7)
+    device_gcups = batch_cells / (k_ms * 1e-3) / 1e9
+    fixed_s = max(call_s - small_cells / device_gcups / 1e9, 1e-6)
+    model = probe.calibrate_dispatch(device_gcups=device_gcups, fixed_s=fixed_s)
+    say(f"calibrate_dispatch: device_gcups={model.device_gcups:.3f} (the kernel on the "
+        f"engine's buckets) fixed_s={model.fixed_s:.6f} (a 16-pair call, median of 7, "
+        f"{small_cells} cells) host_gcups={model.host_gcups:.4f} (native, 64 pairs, all "
+        f"threads) link_gb_s={model.link_gb_s:.3f} (4 MiB pinned H2D) cores={model.cores}; "
+        f"crossover {crossover_cells(model)} cells [{card}]")
+
+    # -- 16c. routing by the calibrated model --------------------------------------
+    clear_launches()
+    for label, batch in (("16 pairs", small), ("engine batch", tcs)):
+        eng = PairHMMEngine(device="cuda")
+        eng.set_cost_model(model)
+        cells = sum(len(t["rs"]) * len(t["hap"]) for t in batch)
+        est = 5 * sum(len(t["rs"]) for t in batch) + sum(len(t["hap"]) for t in batch) \
+            + 12 * len(batch)
+        to_card = model.device_worthwhile(cells, est)
+        res = eng.compute_pairs(batch)
+        on_card = eng.stats["device_calls"] > 0
+        check(on_card == to_card
+              and eng.stats.get("host_native_calls", 0) == int(not to_card),
+              f"{label}: routed {'card' if on_card else 'host'}, model said "
+              f"{'card' if to_card else 'host'}")
+        want = lik_arith.reshape(-1) if batch is tcs else oracle(batch)
+        rel = float(np.max(np.abs(res - want) / np.abs(want)))
+        check(rel < (RAW_RTOL if batch is tcs else RTOL_ORACLE), f"{label}: routed result {rel}")
+        say(f"calibrated routing, {label} ({cells} cells, {est} bytes): host_s="
+            f"{model.host_s(cells):.6f} device_s={model.device_s(cells, est):.6f} -> "
+            f"{'card' if on_card else 'host'}; max_rel vs "
+            f"{'the flat route' if batch is tcs else 'oracle'} {rel:.3e}")
+    run = read_launches()
+    check(run.get("pairhmm_forward_from_quals", 0) > 0, f"routing launches {run}")
+    launches["pairhmm_forward_from_quals"] = run["pairhmm_forward_from_quals"]
+    return launches
+
+
+def service_phase(card: str, engines, fm, smem_reads, pairhmm_batch) -> dict:
+    """Phase 17, the engine service on the card: EngineServer around phase
+    13's GenomicsEngine (the 100 Mbp index on the card); one request at
+    each engine's main-path shape (PairHMM 1024 x 16, SW 8192 pairs,
+    extension 4096 seeds, SMEM 65,536 reads), each equal to the engine's
+    direct call and to the native host, the server's count and the
+    launches showing the card answered; round trip against the direct
+    call (host clocks, median of 5); a 1 Mbp index saved in BWA format and
+    loaded by path; the CLI daemon as a subprocess; two concurrent
+    clients.  Returns the launches of its paths."""
+    import queue
+    import threading
+
+    from acc_genomics_tpu_torch import native
+    from acc_genomics_tpu_torch.io.bwa_index import save_bwa_index
+    from acc_genomics_tpu_torch.io.synth import (
+        gen_reference_with_repeats,
+        gen_smem_reads,
+        gen_sw_batch,
+    )
+    from acc_genomics_tpu_torch.ops.smem.index import FMIndex
+    from acc_genomics_tpu_torch.ops.smem.reference import mem_collect_intv_oracle
+    from acc_genomics_tpu_torch.parallel.service import (
+        OP_EXTEND,
+        OP_PAIRHMM,
+        OP_SMEM,
+        OP_SW,
+        EngineClient,
+        EngineServer,
+    )
+    from acc_genomics_tpu_torch.tools.bench_shapes import SW_BENCH_PAIRS, extend_bench_seeds
+
+    reads, haps, f0 = pairhmm_batch
+    ref, alts = gen_sw_batch(np.random.default_rng(0), SW_BENCH_PAIRS, ref_len=286)
+    refs = [ref] * len(alts)
+    _, seeds = extend_bench_seeds()
+    params = engines.smem.params
+    ext_params = engines.extend.params
+    host_lik = host_loglik([dict(hap=h, **r) for r in reads for h in haps])[0]
+    ops = {
+        "pairhmm": (OP_PAIRHMM, "pairhmm_forward_from_quals",
+                    lambda c: c.pairhmm(reads, haps),
+                    lambda: engines.pairhmm.compute_matrix_flat(*f0)),
+        "sw": (OP_SW, "sw_fill", lambda c: c.sw(refs, alts, 0),
+               lambda: engines.sw.align(refs, alts, 0)),
+        "extend": (OP_EXTEND, "sw_extend", lambda c: c.extend(seeds),
+                   lambda: engines.extend_seeds(seeds)),
+        "smem": (OP_SMEM, "smem_collect", lambda c: c.smem(smem_reads),
+                 lambda: engines.smem_collect(smem_reads)),
+    }
+    host = {
+        "pairhmm": lambda got: float(np.max(np.abs(got.reshape(-1) - host_lik)
+                                            / np.abs(host_lik))) < RTOL_HOST,
+        "sw": lambda got: got == native.sw_align_host(refs, alts, 0),
+        "extend": lambda got: got == host_extend_seeds(seeds, ext_params),
+        "smem": lambda got: got == native.smem_collect_host(fm, smem_reads, params),
+    }
+    launches = {}
+    server = EngineServer(engine=engines).start()
+    try:
+        client = EngineClient(*server.address, device="cuda", request_timeout=600)
+        check(client.connected, "client did not reach the daemon")
+        for name, (op, kernel, remote, direct) in ops.items():
+            before = server.answered[op]
+            clear_launches()
+            got = remote(client)
+            run = read_launches()
+            check(server.answered[op] == before + 1 and not client.used_fallback
+                  and run.get(kernel, 0) > 0,
+                  f"{name}: answered {server.answered[op] - before}, launches {run}")
+            add_launches(launches, run)
+            want = direct()
+            same = (got.tobytes() == want.tobytes() if name == "pairhmm" else got == want)
+            check(same, f"{name}: served result differs from the direct call")
+            check(host[name](got), f"{name}: served result vs the native host")
+            rt, dt = [], []
+            for _ in range(5):  # in turns
+                t0 = time.perf_counter()
+                remote(client)
+                t1 = time.perf_counter()
+                direct()
+                rt.append(t1 - t0)
+                dt.append(time.perf_counter() - t1)
+            say(f"service {name}: served == direct call == native host; round trip "
+                f"median={statistics.median(rt) * 1e3:.3f} ms (min {min(rt) * 1e3:.3f} max "
+                f"{max(rt) * 1e3:.3f}) direct median={statistics.median(dt) * 1e3:.3f} ms "
+                f"(min {min(dt) * 1e3:.3f} max {max(dt) * 1e3:.3f}); the wire "
+                f"{(statistics.median(rt) - statistics.median(dt)) * 1e3:.3f} ms; launches "
+                f"of the checked request {run} [{card}]")
+
+        # a 1 Mbp index in BWA format, loaded by path; then the CLI daemon on it
+        rng = np.random.default_rng(17)
+        genome = gen_reference_with_repeats(rng, 1_000_000)
+        fm1 = FMIndex.build(genome)
+        reads1 = gen_smem_reads(rng, genome, 2048, read_len=101)
+        with tempfile.TemporaryDirectory() as tmp:
+            prefix = os.path.join(tmp, "idx1m")
+            save_bwa_index(prefix, fm1)
+            client.load_reference_path(prefix)
+            clear_launches()
+            got = client.smem(reads1)
+            run = read_launches()
+            check(run.get("smem_collect", 0) > 0 and not client.used_fallback,
+                  f"index by path: launches {run}")
+            launches["smem_collect"] += run["smem_collect"]
+            check(got == native.smem_collect_host(fm1, reads1, params)
+                  and all(got[k] == mem_collect_intv_oracle(fm1, reads1[k], params)
+                          for k in range(0, 2048, 64)), "index by path: SMEM vs host, oracle")
+            say(f"index by path: 1 Mbp saved in BWA format, OP_LOAD_REF by prefix, SMEM on "
+                f"2048 reads == native host, == oracle on 32: ok")
+
+            conf = os.path.join(tmp, "daemon.json")
+            with open(conf, "w") as f:
+                json.dump({"host": "127.0.0.1", "port": 0, "index_prefix": prefix}, f)
+            env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "acc_genomics_tpu_torch.parallel.service",
+                 "--conf", conf, "--device", engines.device.type],
+                cwd=HERE, env=env, stdout=subprocess.PIPE, text=True)
+            try:
+                lines = queue.Queue()
+                threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                                 daemon=True).start()
+                addr = None
+                while addr is None:
+                    m = re.search(r"listening on ([\d.]+):(\d+)", lines.get(timeout=180))
+                    addr = m and (m.group(1), int(m.group(2)))
+                up_s = time.perf_counter() - t0
+                cli = EngineClient(*addr, device="cuda", request_timeout=300)
+                check(cli.connected, "CLI daemon: no connection")
+                sub = reads1[:256]
+                check(cli.smem(sub) == got[:256] and not cli.used_fallback,
+                      "CLI daemon: SMEM differs")
+                cli.shutdown_server()
+                check(proc.wait(timeout=60) == 0, "CLI daemon exit code")
+                say(f"CLI daemon (--conf, --device {engines.device.type}): up in "
+                    f"{up_s:.2f} s, SMEM on 256 reads == the in-process daemon, shut "
+                    f"down: ok")
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=30)
+
+        # two concurrent clients, interleaved SW and SMEM requests
+        want_sw = engines.sw.align(refs[:2048], alts[:2048], 0)
+        want_smem = got[:1024]
+        errs, jobs = [], [
+            lambda c: c.sw(refs[:2048], alts[:2048], 0) == want_sw,
+            lambda c: c.smem(reads1[:1024]) == want_smem,
+        ]
+        before = dict(server.answered)
+
+        def work(job):
+            try:
+                c = EngineClient(*server.address, device="cuda", request_timeout=300)
+                for _ in range(3):
+                    if not job(c):
+                        errs.append("concurrent answer differs")
+                c.close()
+            except Exception as e:  # reported by the check below
+                errs.append(repr(e))
+
+        threads = [threading.Thread(target=work, args=(j,)) for j in jobs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        check(not errs and not any(t.is_alive() for t in threads)
+              and server.answered[OP_SW] - before.get(OP_SW, 0) == 3
+              and server.answered[OP_SMEM] - before.get(OP_SMEM, 0) == 3,
+              f"concurrent clients: {errs}")
+        say(f"two concurrent clients (SW 2048 pairs, SMEM 1024 reads, 3 requests each): "
+            f"exact; the daemon answered {dict(server.answered)}")
+        client.close()
+    finally:
+        server.stop()
+    return launches
+
+
+def drivers_phase(card: str) -> dict:
+    """Phase 18: each port driver's main(..., "--device", "cuda") at small
+    sizes (exit code 0: every oracle and host check passed), then entry()
+    against the plain forward and dryrun_multichip(4) on [cuda:0] * 4.
+    Returns the launches of its paths."""
+    from acc_genomics_tpu_torch import entry
+    from acc_genomics_tpu_torch.drivers import (
+        bwamem_driver,
+        extend_driver,
+        fuzz_driver,
+        hc_driver,
+        pairhmm_driver,
+        smem_driver,
+        sw_driver,
+    )
+    from acc_genomics_tpu_torch.ops.pairhmm import kernel as K
+
+    corpus = tempfile.mkdtemp()  # the corpus under the driver's file names
+    for kind in ("input", "output"):
+        shutil.copy(os.path.join(HERE, "tests", "fixtures", f"pairhmm_{kind}0"),
+                    os.path.join(corpus, f"{kind}0"))
+    runs = [
+        (pairhmm_driver, ["--syn", "2"]),
+        (pairhmm_driver, ["--real", corpus]),
+        (sw_driver, []),
+        (extend_driver, []),
+        (smem_driver, ["--genome", "1000000", "--reads", "2048", "--batches", "1"]),
+        (bwamem_driver, ["--genome", "1000000", "--reads", "1024", "--batches", "1"]),
+        (hc_driver, []),
+        (fuzz_driver, ["--mesh"]),
+    ]
+    launches = {}
+    for module, argv in runs:
+        name = module.__name__.rsplit(".", 1)[1]
+        clear_launches()
+        t0 = time.perf_counter()
+        rc = module.main(argv + ["--device", "cuda"])
+        run = read_launches()
+        say(f"driver {name} {' '.join(argv)}: exit {rc} in {time.perf_counter() - t0:.2f} s; "
+            f"launches {run}")
+        check(rc == 0, f"driver {name} {argv} exit code {rc}")
+        add_launches(launches, run)
+    shutil.rmtree(corpus)
+
+    fn, args = entry.entry("cuda")
+    clear_launches()
+    got = fn(*args).cpu().numpy()
+    run = read_launches()
+    check(run == {"pairhmm_forward": 1}, f"entry() launches {run}")
+    add_launches(launches, run)
+    want = K.pairhmm_forward_plain(*args).cpu().numpy()
+    check(np.allclose(got, want, rtol=1e-5, atol=0), "entry() vs the plain forward")
+    clear_launches()
+    entry.dryrun_multichip(4, "cuda")
+    run = read_launches()
+    check(all(run.get(k, 0) > 0 for k in ("pairhmm_band_superstep", "smem_collect",
+                                           "sw_extend", "sw_fill", "sw_walk")),
+          f"dryrun_multichip launches {run}")
+    say(f"entry() == plain forward (rtol 1e-5); dryrun_multichip(4) on [cuda:0] * 4: ok; "
+        f"launches {run} [{card}]")
+    add_launches(launches, run)
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "acc_genomics_tpu_torch")):
         # run alone, outside a checkout: there is no port to drive
@@ -1695,6 +2125,9 @@ def main() -> int:
     check(eng.stats.get("host_fallback", 0) == 1, "one oversize pair on the host")
     check(rel.max() < RTOL_ORACLE, "oversize batch vs oracle")
 
+    # -- 16. the rest of PairHMMEngine: upload="f32", the calibrated gate --------
+    phase_launches = [dispatch_phase(card, f0, reads, haps, lik, lik_g, batch_cells, k_ms)]
+
     pairhmm_entry = {
         "name": "pairhmm_forward_from_quals", "route": "cuda", "source": CU_SOURCE,
         "replaces": TPU_KERNEL, "launches": launches, "max_abs_err": eng_err,
@@ -1707,15 +2140,28 @@ def main() -> int:
 
     # -- 10-14. BWA-MEM: extension, SMEM, BwaMemSeeding, BwaMemDevicePipeline ------
     extend_entry = extend_phases(card, dev)
-    smem_entry, fused_entry = smem_bwa_phases(card, dev, extend_entry)
+    smem_entry, fused_entry, (engines, fm, smem_reads) = smem_bwa_phases(
+        card, dev, extend_entry)
+
+    # -- 17. the engine service on phase 13's GenomicsEngine ------------------------
+    phase_launches.append(service_phase(card, engines, fm, smem_reads, (reads, haps, f0)))
+    del engines, fm, smem_reads
 
     # -- 15. the mesh path: band kernel, DP x SP, GenomicsEngine(mesh=...) ------
     band_entry = mesh_phase(card, dev)
+
+    # -- 18. the drivers and the entry check -----------------------------------------
+    phase_launches.append(drivers_phase(card))
 
     check(not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "acc_genomics_tpu" or m.startswith("acc_genomics_tpu.")],
           "a phase imported jax or the JAX package")
     entries = [pairhmm_entry, *sw_entries, extend_entry, smem_entry, fused_entry, band_entry]
+    for run in phase_launches:  # phases 16-18 drive their paths through these kernels
+        for e in entries:
+            e["launches"] += run.get(e["name"], 0)
+        pairhmm_entry["coef_front_end_launches"] = (
+            pairhmm_entry.get("coef_front_end_launches", 0) + run.get("pairhmm_forward", 0))
     check(all(e["launches"] > 0 for e in entries),
           f"a kernel no main path launched: {[(e['name'], e['launches']) for e in entries]}")
     say(json.dumps({"kernels": entries}))

@@ -17,6 +17,7 @@ import pytest
 
 import acc_genomics_tpu.native as jax_native
 from acc_genomics_tpu import config as jax_config
+from acc_genomics_tpu.io import bwa_index as jax_bwa
 from acc_genomics_tpu.io import bwasw_records as jax_br
 from acc_genomics_tpu.io import pairhmm_text as jax_text
 from acc_genomics_tpu.io import synth as jax_synth
@@ -29,6 +30,7 @@ from acc_genomics_tpu.ops.smem import reference as jax_smem_ref
 from acc_genomics_tpu.ops.sw import reference as jax_sw_ref
 from acc_genomics_tpu.utils import convert as jax_convert
 from acc_genomics_tpu_torch import config, native
+from acc_genomics_tpu_torch.io import bwa_index as bwa
 from acc_genomics_tpu_torch.io import bwasw_records as br
 from acc_genomics_tpu_torch.io import pairhmm_text as text
 from acc_genomics_tpu_torch.io import synth
@@ -188,6 +190,63 @@ def test_corpus_readers_and_codes():
     _same(convert.encode_bases("ACGTNacgtx"), jax_convert.encode_bases("ACGTNacgtx"))
     assert convert.decode_bases([0, 1, 2, 3, 4]) == jax_convert.decode_bases([0, 1, 2, 3, 4])
     assert (convert.BASE_N, convert.HAP_PAD) == (jax_convert.BASE_N, jax_convert.HAP_PAD)
+
+
+def _write_fasta(path, contigs):
+    with open(path, "w") as f:
+        for name, codes in contigs:
+            f.write(f">{name} synthetic\n")
+            s = "".join("ACGTN"[c] for c in codes)
+            for j in range(0, len(s), 60):
+                f.write(s[j: j + 60] + "\n")
+
+
+BWA_FILES = (".pac", ".bwt", ".sa", ".ann", ".amb")
+
+
+@pytest.mark.parametrize("source", ["fasta", "index"])
+def test_bwa_index_files_and_loads(source, tmp_path, jax_native_off):
+    """Both packages write byte-identical .pac/.bwt/.sa/.ann/.amb files
+    (from a FASTA with N holes and two contigs, or from a built FMIndex),
+    and load and validate them to the same index and annotations."""
+    rng = np.random.default_rng(11)
+    prefixes = [str(tmp_path / "port"), str(tmp_path / "jax")]
+    if source == "fasta":
+        g2 = rng.integers(0, 4, 301).astype(np.uint8)
+        g2[20:25] = 4  # an N hole: lrand48 bases from srand48(11)
+        g2[260] = 4
+        fa = tmp_path / "ref.fa"
+        _write_fasta(fa, [("chr1", _genome(12, 1200)), ("chr2", g2)])
+        _same(bwa.read_fasta(str(fa)), jax_bwa.read_fasta(str(fa)))
+        mine = bwa.build_index_from_fasta(str(fa), prefix=prefixes[0])
+        theirs = jax_bwa.build_index_from_fasta(str(fa), prefix=prefixes[1])
+        _same(mine, theirs)
+        assert len(mine[1].holes) == 2
+    else:
+        genome = _genome(13, 1600)
+        bwa.save_bwa_index(prefixes[0], index.FMIndex.build(genome), sa_intv=16)
+        jax_bwa.save_bwa_index(prefixes[1], jax_index.FMIndex.build(genome), sa_intv=16)
+    for ext in BWA_FILES:
+        with open(prefixes[0] + ext, "rb") as a, open(prefixes[1] + ext, "rb") as b:
+            assert a.read() == b.read(), ext
+    _same(bwa.load_bwa_index(prefixes[0]), jax_bwa.load_bwa_index(prefixes[1]))
+    raw = bytearray(open(prefixes[0] + ".sa", "rb").read())
+    raw[-4] ^= 0xFF  # a corrupt SA sample: validation rejects it
+    open(prefixes[0] + ".sa", "wb").write(bytes(raw))
+    with pytest.raises(ValueError, match="sa samples"):
+        bwa.load_bwa_index(prefixes[0], validate=True)
+
+
+def test_bwa_lrand48_and_pac(tmp_path):
+    mine, theirs = bwa._LRand48(11), jax_bwa._LRand48(11)
+    assert [mine() for _ in range(64)] == [theirs() for _ in range(64)]
+    genome = _genome(14, 403)
+    for n in (400, 401, 403):  # l % 4 == 0 appends a zero byte
+        a, b = str(tmp_path / f"a{n}.pac"), str(tmp_path / f"b{n}.pac")
+        bwa.write_pac(a, genome[:n])
+        jax_bwa.write_pac(b, genome[:n])
+        assert open(a, "rb").read() == open(b, "rb").read()
+        _same(bwa.read_pac(a, n), genome[:n])
 
 
 def test_port_native_against_oracles():

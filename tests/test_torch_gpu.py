@@ -599,3 +599,78 @@ def test_cuda_pairhmm_kernel_segment_edges(cuda, front):
             inert = (qp[6] == 0) | (qp[7] == 0)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=tiny, msg=label)
         assert torch.all(got[inert] == 0), label
+
+
+def _flat_pairs_args(tcs):
+    cat = lambda key: np.concatenate([np.asarray(t[key], np.uint8) for t in tcs])
+    return (cat("rs"), cat("q"), cat("i"), cat("d"), cat("c"),
+            np.array([len(t["rs"]) for t in tcs], np.int32), cat("hap"),
+            np.array([len(t["hap"]) for t in tcs], np.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_f32_upload_matches_byte_planes(cuda):
+    """upload="f32" on the card: the native coefficient pack through the
+    kernel's coefficient front end, against the byte-plane route (gather
+    rtol 1e-6, arith 2e-4) and the oracle (5e-3)."""
+    from acc_genomics_tpu_torch.ops.pairhmm.reference import pairhmm_loglik_oracle
+
+    tcs = gen_pairhmm_pairs(np.random.default_rng(21), 300, max_read_len=120,
+                            max_hap_len=300)
+    flat = _flat_pairs_args(tcs)
+    outs = {}
+    for mode in ("gather", "arith", "f32"):
+        cfg = PairHMMConfig(upload="f32" if mode == "f32" else "quals",
+                            quals_expand="arith" if mode == "arith" else "gather")
+        K.LAUNCHES.clear()
+        eng = PairHMMEngine(cfg, device="cuda")
+        outs[mode] = eng.compute_pairs_flat(*flat)
+        kernel = "pairhmm_forward" if mode == "f32" else "pairhmm_forward_from_quals"
+        assert K.LAUNCHES[kernel] == eng.stats["device_calls"] > 0
+    np.testing.assert_allclose(outs["f32"], outs["gather"], rtol=1e-6)
+    np.testing.assert_allclose(outs["f32"], outs["arith"], rtol=2e-4)
+    want = [pairhmm_loglik_oracle(t["rs"], t["q"], t["i"], t["d"], t["c"], t["hap"])
+            for t in tcs[::10]]
+    np.testing.assert_allclose(outs["f32"][::10], want, rtol=5e-3)
+
+
+@pytest.mark.gpu
+def test_cuda_calibrated_dispatch_routes(cuda):
+    eng = PairHMMEngine(device="cuda")
+    model = eng.calibrate_dispatch(device_gcups=100.0, fixed_s=1e-3)
+    assert model.host_gcups > 0 and model.link_gb_s > 0.1 and model.cores == 1
+    tcs = gen_pairhmm_pairs(np.random.default_rng(22), 8)
+    eng.compute_pairs(tcs)  # 8 small pairs: the host is quicker
+    assert eng.stats.get("host_native_calls", 0) == 1 and eng.stats["device_calls"] == 0
+
+
+@pytest.mark.gpu
+def test_cuda_service_loopback(cuda):
+    """A daemon on the card answers PairHMM, SW and SMEM requests equal to
+    the engine's direct calls, and counts them."""
+    from acc_genomics_tpu_torch.parallel.service import EngineClient, EngineServer
+
+    rng = np.random.default_rng(23)
+    server = EngineServer(device="cuda").start()
+    try:
+        client = EngineClient(*server.address, device="cuda", request_timeout=300)
+        assert client.connected
+        reads, haps = gen_pairhmm_input(rng, 32, 4, max_read_len=100, max_hap_len=200)
+        K.LAUNCHES.clear()
+        lik = client.pairhmm(reads, haps)
+        assert K.LAUNCHES["pairhmm_forward_from_quals"] > 0
+        from acc_genomics_tpu_torch.tools.bench_shapes import flat_matrix_args
+
+        direct = server.engine.pairhmm.compute_matrix_flat(*flat_matrix_args(reads, haps))
+        assert lik.tobytes() == direct.tobytes()
+        ref, alts = gen_sw_batch(rng, 64, ref_len=200)
+        assert client.sw([ref] * 64, alts) == native.sw_align_host([ref] * 64, alts, 0)
+        genome = gen_reference_with_repeats(rng, 50_000)
+        client.load_reference(genome)
+        smem_reads = gen_smem_reads(rng, genome, 256)
+        fm = FMIndex.build(genome)
+        assert client.smem(smem_reads) == native.smem_collect_host(fm, smem_reads)
+        assert sum(server.answered.values()) == 4 and not client.used_fallback
+        client.shutdown_server()
+    finally:
+        server.stop()

@@ -62,6 +62,19 @@ assert torch.allclose(pairhmm_forward_dpsp(mesh, *args), pairhmm_forward_dp(mesh
 SmemConfig().params(); SWConfig().params(); ExtendConfig().params()
 assert native.available()
 assert native.sw_align_host([np.zeros(8, np.uint8)], [np.zeros(8, np.uint8)], 0)
+import tempfile
+from acc_genomics_tpu_torch.io.bwa_index import load_bwa_index, save_bwa_index
+from acc_genomics_tpu_torch.utils.timer import device_trace
+with tempfile.TemporaryDirectory() as tmp:
+    save_bwa_index(tmp + "/idx", fm)
+    assert load_bwa_index(tmp + "/idx")[0].primary == fm.primary
+    with device_trace(tmp + "/trace", "cpu"):
+        torch.arange(4).sum()
+from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext
+ctx = PairHMMContext(np.float32)
+flat = native._flat_pairs(pairs, 64, 128, 0)[:10]
+assert native.pairhmm_pack_flat_f32(*flat, 64, 128, ctx.ph2pr, ctx.match_to_match,
+                                    ctx.initial_constant)[0].shape == (513, 4)
 print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')
              or m == 'acc_genomics_tpu' or m.startswith('acc_genomics_tpu.')))
 """
@@ -77,6 +90,11 @@ print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')
             "acc_genomics_tpu_torch.parallel.sharded",
             "acc_genomics_tpu_torch.parallel.sharded_kernels",
             "acc_genomics_tpu_torch.ops.pairhmm.band_kernel"} <= set(PORT_MODULES)
+    assert {"acc_genomics_tpu_torch.parallel.service", "acc_genomics_tpu_torch.io.bwa_index",
+            "acc_genomics_tpu_torch.entry"} | {
+        f"acc_genomics_tpu_torch.drivers.{d}_driver"
+        for d in ("pairhmm", "sw", "extend", "smem", "bwamem", "hc", "fuzz")
+    } <= set(PORT_MODULES)
 
 
 @pytest.mark.parametrize("path", PORT_FILES)
@@ -131,8 +149,6 @@ def test_mixed_or_unsupported_devices_raise():
 
 
 def test_engine_rejects_f32_upload_and_unknown_expand():
-    with pytest.raises(ValueError, match="f32"):
-        PairHMMEngine(PairHMMConfig(upload="f32"), device="cpu")
     with pytest.raises(ValueError):
         PairHMMEngine(PairHMMConfig(quals_expand="table"), device="cpu")
 

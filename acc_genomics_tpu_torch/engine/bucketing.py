@@ -28,6 +28,20 @@ class BucketPlan:
     groups: Dict[Tuple[int, int], List[int]]
     n_pairs: int
 
+    @property
+    def shapes(self) -> List[Tuple[int, int]]:
+        """The (rows, cols) shapes in use, sorted."""
+        return sorted(self.groups)
+
+    def padded_cells(self, lane_pad: int = 128) -> int:
+        """Cells the launches cover when each group's pairs are padded to
+        whole blocks of ``lane_pad`` lanes."""
+        total = 0
+        for (r, c), idxs in self.groups.items():
+            blocks = -(-len(idxs) // lane_pad)
+            total += blocks * lane_pad * r * c
+        return total
+
 
 def plan_buckets(
     read_lens: Sequence[int],

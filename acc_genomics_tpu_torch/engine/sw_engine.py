@@ -8,8 +8,10 @@ The port of ``acc_genomics_tpu/engine/sw_engine.py`` on its device route
   ``config.seq_buckets`` and launch in chunks of at most
   ``config.max_batch`` pairs, fewer where a chunk's backtrack matrix would
   pass ``BTRACK_BUDGET_BYTES``;
-* pairs with a sequence past the largest bucket run on the native host
-  engine, on a worker thread concurrent with the launches;
+* pairs with a sequence past the largest bucket, and pairs with an empty
+  ref or alt, run on the native host engine, on a worker thread
+  concurrent with the launches (an empty side aligns to ``([], 0)``, the
+  JAX engine's answer on its XLA route);
 * every chunk is launched before anything is fetched, and the packed
   element buffers of all chunks come back in one D2H copy; the backtrack
   matrices never leave the card;
@@ -87,7 +89,7 @@ class SWEngine:
         for k, (r, a) in enumerate(zip(refs, alts)):
             br = self._bucket(len(r))
             ba = self._bucket(len(a))
-            if br is None or ba is None:
+            if br is None or ba is None or len(r) == 0 or len(a) == 0:
                 host_idx.append(k)
                 continue
             groups.setdefault((br, ba), []).append(k)

@@ -55,26 +55,17 @@ def pairhmm_forward_dp(mesh: Mesh, *packed) -> torch.Tensor:
     return torch.cat(parts)
 
 
-class _DevicePlan:
+class DevicePlan:
     """One device's slots and pipeline state (``band_kernel``'s layout).
     Slots are in (shard, data group) order, so the slots active at a
-    superstep (a range of shards) are a contiguous range of positions."""
+    superstep (a range of shards) are a contiguous range of positions.
+    ``table`` holds each slot's (shard, lane offset, left column);
+    ``mirrors`` names the (data group, shard) whose edge column each
+    column past the slots' mirrors."""
 
-    def __init__(self, dev, slots: List[Tuple[int, int]], where, front, planes, tables,
-                 hap, rows: int, hc: int, bd: int):
-        self.dev, self.slots = dev, slots
-        self.mirrors: List[Tuple[int, int]] = []  # left neighbours on other devices
-        table = []
-        for d, k in slots:
-            left = -1
-            if k > 0:
-                ldev, lpos = where[d, k - 1]
-                if ldev == dev:
-                    left = lpos
-                else:
-                    left = len(slots) + len(self.mirrors)
-                    self.mirrors.append((d, k - 1))
-            table.append((k, d * bd, left))
+    def __init__(self, dev, slots: List[Tuple[int, int]], table, mirrors: List[Tuple[int, int]],
+                 front, planes, tables, hap, rows: int, hc: int, bd: int):
+        self.dev, self.slots, self.mirrors = dev, slots, mirrors
         n = len(slots)
         f32 = dict(dtype=torch.float32, device=dev)
         self.front = front
@@ -84,12 +75,30 @@ class _DevicePlan:
         self.hap = hap.to(dev)
         self.table = torch.tensor(table, dtype=torch.int32).reshape(n, 3).to(dev)
         self.tops = torch.empty((2, 3, n, bd, hc), **f32)
-        self.edges = torch.zeros((3, n + len(self.mirrors), bd, rows + 1), **f32)
+        self.edges = torch.zeros((3, n + len(mirrors), bd, rows + 1), **f32)
         self.res = torch.empty((n, bd), **f32)
 
-    def active(self, t: int, n_chunks: int) -> Tuple[int, int]:
+    def step(self, t: int, n_chunks: int, C: int):
+        """Superstep ``t``: one launch over the slots whose chunk t - k is
+        in range."""
         pos = [i for i, (_, k) in enumerate(self.slots) if 0 <= t - k < n_chunks]
-        return (pos[0], pos[-1] + 1) if pos else (0, 0)
+        if pos:
+            pairhmm_band_superstep(self.front, self.planes, self.tables, self.hap, self.table,
+                                   self.tops, self.edges, self.res, t, pos[0],
+                                   pos[-1] + 1 - pos[0], C, n_chunks)
+
+
+def band_geometry(rows: int, cols: int, bsz: int, C: int, n_data: int,
+                  n_seq: int) -> Tuple[int, int, int]:
+    """(hc, n_chunks, bd) of a pack on a (n_data, n_seq) grid; raises
+    unless rows divide by C, columns by the seq axis, lanes by data."""
+    if rows % C:
+        raise ValueError(f"rows {rows} must divide by chunk size {C}")
+    if cols < n_seq or cols % n_seq:
+        raise ValueError(f"hap columns {cols} must divide over {n_seq} seq shards")
+    if bsz % n_data:
+        raise ValueError(f"{bsz} lanes do not divide over {n_data} data shards")
+    return cols // n_seq, rows // C, bsz // n_data
 
 
 def _band_pipeline(mesh: Mesh, front: str, planes, tables, hap_ext, C: int) -> torch.Tensor:
@@ -100,16 +109,10 @@ def _band_pipeline(mesh: Mesh, front: str, planes, tables, hap_ext, C: int) -> t
     rows, bsz = planes[0].shape
     cols = hap_ext.shape[0] - rows
     n_data, n_seq = mesh.shape["data"], mesh.shape["seq"]
-    if rows % C:
-        raise ValueError(f"rows {rows} must divide by chunk size {C}")
-    if cols < n_seq or cols % n_seq:
-        raise ValueError(f"hap columns {cols} must divide over {n_seq} seq shards")
-    if bsz % n_data:
-        raise ValueError(f"{bsz} lanes do not divide over {n_data} data shards")
+    hc, n_chunks, bd = band_geometry(rows, cols, bsz, C, n_data, n_seq)
     out_dev = mesh.first_device
     if bsz == 0:
         return torch.zeros(0, dtype=torch.float32, device=out_dev)
-    hc, n_chunks, bd = cols // n_seq, rows // C, bsz // n_data
     hap = hap_ext[:cols].to(torch.uint8).t().contiguous()  # lane-major codes
 
     by_dev: Dict[torch.device, List[Tuple[int, int]]] = {}
@@ -117,15 +120,25 @@ def _band_pipeline(mesh: Mesh, front: str, planes, tables, hap_ext, C: int) -> t
         for d in range(n_data):
             by_dev.setdefault(mesh.devices[d, k], []).append((d, k))
     where = {dk: (dev, i) for dev, slots in by_dev.items() for i, dk in enumerate(slots)}
-    plans = {dev: _DevicePlan(dev, slots, where, front, planes, tables, hap, rows, hc, bd)
-             for dev, slots in by_dev.items()}
+    plans = {}
+    for dev, slots in by_dev.items():
+        table, mirrors = [], []  # left neighbours on other devices are mirrored
+        for d, k in slots:
+            left = -1
+            if k > 0:
+                ldev, lpos = where[d, k - 1]
+                if ldev == dev:
+                    left = lpos
+                else:
+                    left = len(slots) + len(mirrors)
+                    mirrors.append((d, k - 1))
+            table.append((k, d * bd, left))
+        plans[dev] = DevicePlan(dev, slots, table, mirrors, front, planes, tables, hap,
+                                rows, hc, bd)
 
     for t in range(n_chunks + n_seq - 1):
         for p in plans.values():
-            a, b = p.active(t, n_chunks)
-            if a < b:
-                pairhmm_band_superstep(p.front, p.planes, p.tables, p.hap, p.table, p.tops,
-                                       p.edges, p.res, t, a, b - a, C, n_chunks)
+            p.step(t, n_chunks, C)
         for p in plans.values():  # the chunk's rows of a column on another device
             for m, (d, k) in enumerate(p.mirrors):
                 c = t - k
@@ -146,16 +159,28 @@ def _band_pipeline(mesh: Mesh, front: str, planes, tables, hap_ext, C: int) -> t
     return torch.cat(parts)
 
 
+def coef_planes(packed) -> tuple:
+    """The fp32 front end's planes of the 11 ``pack.arrays()`` tensors."""
+    (p_mm, p_gapm, p_mx, p_xx, p_my, p_yy, em_m, em_x, rs, hap_ext, y0) = packed
+    planes = tuple(x.float().contiguous() for x in (p_mm, p_gapm, p_mx, p_xx, p_my, p_yy,
+                                                    em_m, em_x))
+    return planes + (rs.to(torch.int32).contiguous(), y0.float().contiguous())
+
+
+def quals_planes(q, i, d, c, rs, rslen, haplen, expand: str) -> tuple:
+    """The byte front end's planes; ``expand`` is "arith" or "gather"."""
+    if expand not in ("arith", "gather"):
+        raise ValueError(f"expand must be 'arith' or 'gather', not {expand!r}")
+    planes = tuple(x.contiguous() for x in (q, i, d, c, rs))
+    return planes + (rslen.to(torch.int32).contiguous(), haplen.to(torch.int32).contiguous())
+
+
 def pairhmm_forward_dpsp(mesh: Mesh, *packed, C: int = 8) -> torch.Tensor:
     """DP x SP forward of the 11 ``pack.arrays()`` tensors over the mesh
     (the band pipeline with the fp32 front end).  Rows must divide by C,
     haplotype columns by the seq axis, lanes by the data axis.  Returns
     (B,) float32 on the mesh's first device."""
-    (p_mm, p_gapm, p_mx, p_xx, p_my, p_yy, em_m, em_x, rs, hap_ext, y0) = packed
-    planes = tuple(x.float().contiguous() for x in (p_mm, p_gapm, p_mx, p_xx, p_my, p_yy,
-                                                    em_m, em_x))
-    planes += (rs.to(torch.int32).contiguous(), y0.float().contiguous())
-    return _band_pipeline(mesh, "coef", planes, (), hap_ext, C)
+    return _band_pipeline(mesh, "coef", coef_planes(packed), (), packed[9], C)
 
 
 def pairhmm_forward_dpsp_from_quals(mesh: Mesh, q, i, d, c, rs, hap_ext, rslen, haplen,
@@ -166,8 +191,5 @@ def pairhmm_forward_dpsp_from_quals(mesh: Mesh, q, i, d, c, rs, hap_ext, rslen, 
     expands each chunk row's coefficients (``expand`` "arith" or "gather")
     and y0 = initial_constant / haplen itself.  Same geometry rules and
     result as ``pairhmm_forward_dpsp``."""
-    if expand not in ("arith", "gather"):
-        raise ValueError(f"expand must be 'arith' or 'gather', not {expand!r}")
-    planes = tuple(x.contiguous() for x in (q, i, d, c, rs))
-    planes += (rslen.to(torch.int32).contiguous(), haplen.to(torch.int32).contiguous())
+    planes = quals_planes(q, i, d, c, rs, rslen, haplen, expand)
     return _band_pipeline(mesh, expand, planes, (ph2pr, m2m, initial_constant), hap_ext, C)

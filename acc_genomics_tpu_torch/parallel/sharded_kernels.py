@@ -70,6 +70,19 @@ def sw_extend_dp(mesh: Mesh, q_tm, t_tm, qlen, tlen, h0, max_ins, max_del,
     return torch.cat(parts, 1)
 
 
+def sw_fill_dp(mesh: Mesh, ref, alt, reflen, altlen, strategy: int,
+               params: SWParams = DEFAULT_SW_PARAMS):
+    """The SW fill alone, pairs (the rows of ref (B, R) and alt (B, C)) over
+    "data": ``sw_fill``'s (btrack, lastrow, altcol), pairs first; the
+    backtrack is the caller's."""
+    parts = []
+    for dev, lo, hi in _groups(mesh, ref.shape[0]):
+        fill = sw_fill(ref[lo:hi].to(dev), alt[lo:hi].to(dev), reflen[lo:hi].to(dev),
+                       altlen[lo:hi].to(dev), strategy, params)
+        parts.append([x.to(mesh.first_device) for x in fill])
+    return tuple(torch.cat([p[k] for p in parts]) for k in range(3))
+
+
 def sw_device_dp(mesh: Mesh, ref, alt, reflen, altlen, strategy: int,
                  params: SWParams = DEFAULT_SW_PARAMS) -> torch.Tensor:
     """The SW device path (fill, then walk), pairs (the rows of ref (B, R)

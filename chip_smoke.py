@@ -56,7 +56,10 @@ EngineServer around the 100 Mbp GenomicsEngine, one request at each
 engine's main-path shape equal to the direct call and the native host,
 round trips against direct calls, an index loaded by path, the CLI
 daemon and concurrent clients.  Then each port driver at small sizes,
-entry() and dryrun_multichip(4) on the one card.
+entry() and dryrun_multichip(4) on the one card.  Last, two processes on
+the one card in a gloo group run the process-group forms (PairHMM DP and
+DP x SP, SW, extension, SMEM) at the main paths' shapes against the
+single-process forms, and the scaling driver runs on the card repeated.
 Any failed check raises, so the exit code is non-zero.  The last line of
 standard output is one JSON object naming the device; the line before it
 lists each kernel of the main paths with its launches, error, times and
@@ -1850,6 +1853,58 @@ def drivers_phase(card: str) -> dict:
     return launches
 
 
+PG_KERNELS = ("pairhmm_forward", "pairhmm_band_superstep", "sw_fill", "sw_walk", "sw_extend",
+              "smem_collect")
+PG_TIMEOUT_S = 600
+
+
+def distributed_phase(card: str) -> dict:
+    """Phase 19: two processes on the one card in a gloo group over a file
+    store (``tools/pg_run.py`` at the main paths' shapes: one bucket of the
+    8192-pair PairHMM kernel batch, DP x SP on a (1, 2) grid over phase
+    15's 2,048 long pairs, the SW batch's first 4096-pair chunk, the
+    2048-task extension batch, 2048 reads over a 1 Mbp index), each rank
+    holding its gathered result and local part against the single-process
+    form; then the scaling driver on [cuda:0] * 4.  Returns the launches
+    of the ranks' checked runs and the scaling driver's."""
+    import torch
+
+    from acc_genomics_tpu_torch.drivers import scaling_driver
+    from acc_genomics_tpu_torch.tools.pg_run import run_ranks
+
+    tmp = tempfile.mkdtemp()
+    try:
+        t0 = time.perf_counter()
+        outs = run_ranks(tmp, "cuda", "main", timeout=PG_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {}
+    for r, (rc, out) in enumerate(outs):
+        if rc != 0:
+            say(f"rank {r} output (last 4000 characters):\n{out[-4000:]}")
+        check(rc == 0, f"phase 19 rank {r} exit code {rc}")
+        rep = json.loads(out.strip().splitlines()[-1])
+        check(rep["device"] == torch.cuda.get_device_name(0) and rep["checks"]
+              and all(rep["checks"].values()), f"phase 19 rank {r}: {rep['checks']}")
+        say(f"two processes on cuda:0, rank {r}: checks {rep['checks']}; launches "
+            f"{rep['launches']}; times {json.dumps(rep['times'])} [{card}]")
+        add_launches(launches, rep["launches"])
+    check(all(launches.get(k, 0) > 0 for k in PG_KERNELS),
+          f"phase 19: a kernel the ranks did not launch: {launches}")
+    say(f"phase 19: both ranks exit 0 in {wall:.2f} s (wall, the ranks' set-up included) "
+        f"[{card}]")
+    clear_launches()
+    t0 = time.perf_counter()
+    rc = scaling_driver.main(["--device", "cuda", "--devices", "4", "--reps", "3"])
+    run = read_launches()
+    say(f"scaling_driver --devices 4: exit {rc} in {time.perf_counter() - t0:.2f} s; "
+        f"launches {run} [{card}]")
+    check(rc == 0 and run.get("pairhmm_forward", 0) > 0, "scaling_driver on [cuda:0] * 4")
+    add_launches(launches, run)
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "acc_genomics_tpu_torch")):
         # run alone, outside a checkout: there is no port to drive
@@ -2153,11 +2208,14 @@ def main() -> int:
     # -- 18. the drivers and the entry check -----------------------------------------
     phase_launches.append(drivers_phase(card))
 
+    # -- 19. two processes on the card: the process-group forms, the scaling driver --
+    phase_launches.append(distributed_phase(card))
+
     check(not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "acc_genomics_tpu" or m.startswith("acc_genomics_tpu.")],
           "a phase imported jax or the JAX package")
     entries = [pairhmm_entry, *sw_entries, extend_entry, smem_entry, fused_entry, band_entry]
-    for run in phase_launches:  # phases 16-18 drive their paths through these kernels
+    for run in phase_launches:  # phases 16-19 drive their paths through these kernels
         for e in entries:
             e["launches"] += run.get(e["name"], 0)
         pairhmm_entry["coef_front_end_launches"] = (

@@ -24,6 +24,7 @@ from acc_genomics_tpu_torch.drivers import (
     fuzz_driver,
     hc_driver,
     pairhmm_driver,
+    scaling_driver,
     smem_driver,
     sw_driver,
 )
@@ -181,3 +182,27 @@ def test_dryrun_multichip_on_cpu_devices(capsys):
     out = capsys.readouterr().out
     assert "entry(): pairhmm_forward on 11 tensors -> (256,)" in out
     assert "dryrun_multichip OK: mesh {'data': 2, 'seq': 2}" in out
+
+
+def test_scaling_driver_on_a_repeated_cpu_device(capsys, monkeypatch):
+    """--devices 4 repeats the CPU: the shared-device note, each d's result
+    exact against d = 1; a corrupted sharded result exits 1."""
+    argv = ["--devices", "4", "--pairs", "64"] + CPU
+    assert scaling_driver.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "share 1 device(s)" in out and "no speedup can show" in out
+    assert [line.split(":")[0] for line in out.splitlines() if "GCUPS" in line] == \
+        ["1 device(s)", "2 device(s)", "4 device(s)"]
+    real = scaling_driver.pairhmm_forward_dp
+
+    def spoiled(mesh, *arrays):
+        out = real(mesh, *arrays)
+        if mesh.shape["data"] == 4:
+            out = out.clone()
+            out[0] += 1e-3 * out[0]
+        return out
+
+    monkeypatch.setattr(scaling_driver, "pairhmm_forward_dp", spoiled)
+    assert scaling_driver.main(argv) == 1
+    bad = [line for line in capsys.readouterr().out.splitlines() if "MISMATCH" in line]
+    assert len(bad) == 1 and bad[0].startswith("4 device(s)")

@@ -16,6 +16,7 @@ of the native fp32 host engine and within 1e-5 of the DP kernel (another
 summation order).
 """
 
+import json
 import os
 
 import numpy as np
@@ -247,6 +248,71 @@ def test_cuda_sw_engine_matches_native_host(cuda):
         assert got == native.sw_align_host(refs, alts, strategy)
     assert eng.stats["host_fallback"] == 4
     assert SK.LAUNCHES["sw_walk"] - before == 4 * n_buckets  # one chunk each
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", [0, 1, 2, 3])
+def test_cuda_sw_engine_empty_side_on_the_host(cuda, strategy):
+    """Pairs with an empty ref or alt among card pairs: ([], 0) from the
+    native host engine, counted in host_fallback; the rest on the card."""
+    rng = np.random.default_rng(4)
+    ref, alts = gen_sw_batch(rng, 6, ref_len=80)
+    empty = np.zeros(0, np.uint8)
+    refs = [ref, empty, ref, empty, ref, ref]
+    alts = [alts[0], alts[1], empty, empty, alts[4], alts[5]]
+    eng = SWEngine(device="cuda")
+    before = SK.LAUNCHES["sw_fill"]
+    got = eng.align(refs, alts, strategy)
+    assert got == native.sw_align_host(refs, alts, strategy)
+    assert got[1] == got[2] == got[3] == ([], 0)
+    assert eng.stats["host_fallback"] == 3 and SK.LAUNCHES["sw_fill"] == before + 1
+
+
+@pytest.fixture(scope="module")
+def two_ranks_on_the_card(tmp_path_factory):
+    """tools/pg_run.py's two ranks on cuda:0 (small shapes): their reports
+    and rank 0's npz."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from acc_genomics_tpu_torch.tools.pg_run import run_ranks
+
+    tmp = str(tmp_path_factory.mktemp("pg"))
+    outs = run_ranks(tmp, "cuda", "small", timeout=600, out=True)
+    for r, (rc, out) in enumerate(outs):
+        assert rc == 0, f"rank {r} failed:\n{out}"
+    reports = [json.loads(out.strip().splitlines()[-1]) for _, out in outs]
+    return reports, dict(np.load(os.path.join(tmp, "rank0.npz")))
+
+
+@pytest.mark.gpu
+def test_cuda_two_process_dp(two_ranks_on_the_card):
+    """pairhmm_forward_dp_pg in two processes on one card: each rank's
+    checks (gathered equal to the single-process form within 1e-6, local
+    halves exact) and the kernel launched; the gathered result within
+    rtol 1e-5 of the plain forward."""
+    reports, f = two_ranks_on_the_card
+    for rep in reports:
+        assert rep["checks"]["pairhmm_dp"] and rep["launches"]["pairhmm_forward"] >= 2
+        assert all(rep["checks"].values()), rep["checks"]
+    args = [torch.from_numpy(f[f"in_dp_{j}"]) for j in range(11)]
+    want = K.pairhmm_forward_plain(*args).numpy()
+    np.testing.assert_allclose(f["pairhmm_dp_gathered_0"], want, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_two_process_dpsp(two_ranks_on_the_card):
+    """pairhmm_forward_dpsp_pg (both front ends) on a (1, 2) grid of two
+    processes on one card: bit for bit the single-process pipeline (each
+    rank's check), the band kernel launched, and within rtol 1e-5 of the
+    DP forward's plain version (another summation order)."""
+    reports, f = two_ranks_on_the_card
+    for rep in reports:
+        assert rep["checks"]["pairhmm_dpsp"] and rep["checks"]["pairhmm_dpsp_quals"]
+        assert rep["launches"]["pairhmm_band_superstep"] > 0
+    args = [torch.from_numpy(f[f"in_dpsp_{j}"]) for j in range(11)]
+    want = K.pairhmm_forward_plain(*args).numpy()
+    np.testing.assert_allclose(f["pairhmm_dpsp_gathered_0"], want, rtol=1e-5)
+    np.testing.assert_allclose(f["pairhmm_dpsp_quals_gathered_0"], want, rtol=2e-4)
 
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")

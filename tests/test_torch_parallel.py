@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from acc_genomics_tpu.config import PairHMMConfig as JaxPairHMMConfig
+from acc_genomics_tpu.engine.bucketing import plan_buckets as jax_plan_buckets
 from acc_genomics_tpu.engine.genomics_engine import GenomicsEngine as JaxGenomicsEngine
 from acc_genomics_tpu.engine.pairhmm_engine import PairHMMEngine as JaxPairHMMEngine
 from acc_genomics_tpu.io.synth import (
@@ -43,6 +44,7 @@ from acc_genomics_tpu.parallel.sharded_kernels import (
     sw_fill_dp as jax_sw_fill_dp,
 )
 from acc_genomics_tpu_torch.config import PairHMMConfig
+from acc_genomics_tpu_torch.engine.bucketing import plan_buckets
 from acc_genomics_tpu_torch.engine.genomics_engine import GenomicsEngine
 from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine, sp_chunk_rows
 from acc_genomics_tpu_torch.ops.extend.kernel import KEYS, sw_extend_rows
@@ -67,6 +69,7 @@ from acc_genomics_tpu_torch.parallel.sharded_kernels import (
     smem_collect_dp,
     sw_device_dp,
     sw_extend_dp,
+    sw_fill_dp,
 )
 
 CPU = torch.device("cpu")
@@ -391,6 +394,45 @@ def test_sw_device_dp_matches_single_and_jax_fill_dp():
         want = [sw_backtrack_slim(bt[j], lr[j], ac[j], R, C, strategy) for j in range(B)]
         assert [(list(map(tuple, c)), o) for c, o in got] == \
             [(list(map(tuple, c)), o) for c, o in want], strategy
+
+
+@pytest.mark.parametrize("strategy", [0, 1, 2, 3])
+def test_sw_fill_dp_matches_single_and_jax_fill_dp(strategy):
+    """tests/test_sharded_kernels.py:127-140's fill alone: the port's
+    triple (pairs first, its own layout) against the single-device fill
+    and, inside each pair's region, the JAX DP fill."""
+    rng = np.random.default_rng(strategy)
+    B, R, C = 8, 24, 32
+    refs = [rng.integers(0, 4, n).astype(np.uint8) for n in rng.integers(1, R + 1, B)]
+    alts = [rng.integers(0, 4, n).astype(np.uint8) for n in rng.integers(1, C + 1, B)]
+    ref, alt = np.empty((B, R), np.uint8), np.empty((B, C), np.uint8)
+    rl, al = pack_planes(refs, R, ref), pack_planes(alts, C, alt)
+    targs = [torch.from_numpy(x) for x in (ref, alt, rl, al)]
+    got = sw_fill_dp(_mesh((8, 1)), *targs, strategy)
+    assert all(torch.equal(a, b) for a, b in zip(got, sw_fill(*targs, strategy)))
+    btrack, lastrow, altcol = (x.numpy() for x in got)
+    w_bt, w_last, w_col = (np.asarray(x) for x in jax_sw_fill_dp(
+        jax_make_mesh((8, 1)), *[jnp.asarray(v) for v in (ref.T.astype(np.int32),
+                                                          alt.T.astype(np.int32), rl, al)],
+        strategy))
+    for b in range(B):
+        i, j = np.meshgrid(np.arange(rl[b]), np.arange(al[b]), indexing="ij")
+        np.testing.assert_array_equal(btrack[b, i + j, i], w_bt[i, j, b])
+        np.testing.assert_array_equal(lastrow[b, : al[b]], w_last[1 : al[b] + 1, b])
+        np.testing.assert_array_equal(altcol[b, : rl[b]], w_col[: rl[b], b])
+
+
+@pytest.mark.parametrize("lane_pad", [1, 8, 128])
+def test_bucket_plan_shapes_and_padded_cells_match_jax(lane_pad):
+    rng = np.random.default_rng(lane_pad)
+    read_lens = rng.integers(1, 150, 300).tolist()
+    hap_lens = rng.integers(1, 500, 300).tolist()
+    buckets = ((32, 64, 96, 160), (128, 256, 512))
+    got = plan_buckets(read_lens, hap_lens, *buckets)
+    want = jax_plan_buckets(read_lens, hap_lens, *buckets)
+    assert got.shapes == want.shapes and len(got.shapes) > 4
+    assert got.padded_cells(lane_pad) == want.padded_cells(lane_pad)
+    assert got.padded_cells() == want.padded_cells()
 
 
 # -- GenomicsEngine(mesh=...) --------------------------------------------------

@@ -17,10 +17,12 @@ from acc_genomics_tpu.config import SWConfig as JaxSWConfig
 from acc_genomics_tpu.engine.sw_engine import SWEngine as JaxEngine
 from acc_genomics_tpu.io.synth import gen_sw_batch
 from acc_genomics_tpu.ops.sw.reference import sw_align_oracle
-from acc_genomics_tpu_torch.config import SWConfig
+from acc_genomics_tpu_torch.config import EngineConfig, SWConfig
 from acc_genomics_tpu_torch.engine import sw_engine as engine_module
+from acc_genomics_tpu_torch.engine.genomics_engine import GenomicsEngine
 from acc_genomics_tpu_torch.engine.sw_engine import SWEngine, chunk_pairs
 from acc_genomics_tpu_torch.ops.sw import kernel as K
+from acc_genomics_tpu_torch.parallel import make_mesh
 
 
 def _jax(cfg):
@@ -130,3 +132,46 @@ def test_cpu_engine_never_launches(rng):
     before = dict(K.LAUNCHES)
     SWEngine(SWConfig(seq_buckets=(64,)), device="cpu").align_one_ref(ref, alts, 0)
     assert dict(K.LAUNCHES) == before
+
+
+EMPTY = np.zeros(0, np.uint8)
+EMPTY_SIDES = {"ref": lambda r, a: (EMPTY, a), "alt": lambda r, a: (r, EMPTY),
+               "both": lambda r, a: (EMPTY, EMPTY)}
+
+
+@pytest.mark.parametrize("strategy", [0, 1, 2, 3])
+@pytest.mark.parametrize("side", sorted(EMPTY_SIDES))
+def test_empty_side_aligns_on_the_host_as_the_jax_engine(side, strategy, rng):
+    """A pair with an empty ref or alt, mixed into a batch of normal pairs,
+    runs on the native host engine: ([], 0), the JAX engine's answer on
+    its XLA route, counted in host_fallback."""
+    ref, alts = gen_sw_batch(rng, 4, ref_len=50)
+    refs, alts = [ref] * 4, list(alts)
+    for k in (1, 3):
+        refs[k], alts[k] = EMPTY_SIDES[side](refs[k], alts[k])
+    cfg = SWConfig(seq_buckets=(64,))
+    port = SWEngine(cfg, device="cpu")
+    jax_eng = JaxEngine(_jax(cfg), use_pallas=False)
+    got = port.align(refs, alts, strategy)
+    assert got == jax_eng.align(refs, alts, strategy)
+    assert got[1] == got[3] == ([], 0)
+    assert [got[0], got[2]] == [sw_align_oracle(refs[k], alts[k], strategy) for k in (0, 2)]
+    assert port.stats["host_fallback"] == jax_eng.stats["host_fallback"] + 2
+    assert dict(port.stats, host_fallback=0) == dict(jax_eng.stats, host_fallback=0)
+
+
+def test_empty_side_through_align_one_ref_genomics_engine_and_mesh(rng):
+    ref, alts = gen_sw_batch(rng, 5, ref_len=60)
+    alts[2] = EMPTY
+    cfg = SWConfig(seq_buckets=(64,))
+    jax_eng = JaxEngine(_jax(cfg), use_pallas=False)
+    facade = GenomicsEngine(EngineConfig(sw=cfg), device="cpu")
+    meshed = SWEngine(cfg, device="cpu", mesh=make_mesh((8, 1), devices=["cpu"] * 8))
+    for strategy in (0, 1, 2, 3):
+        want = jax_eng.align_one_ref(ref, alts, strategy)
+        assert want[2] == ([], 0)
+        assert facade.sw_align(ref, alts, strategy) == want
+        assert meshed.align_one_ref(ref, alts, strategy) == want
+    assert facade.sw.stats["host_fallback"] == meshed.stats["host_fallback"] == 4
+    assert facade.sw_align(EMPTY, alts, 1) == jax_eng.align_one_ref(EMPTY, alts, 1) == \
+        [([], 0)] * 5

@@ -25,7 +25,6 @@ On ``device="cpu"`` the same route runs the kernel's plain version.
 from __future__ import annotations
 
 import threading
-import time
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -104,14 +103,12 @@ class ExtendEngine:
         self.t_buckets = _bucket_ladder(64, config.max_tlen)
         self.params = config.params()
         self.stats = {"seeds": 0, "device_calls": 0, "host_fallback": 0}
-        # per-phase anatomy: prep = per-seed task views, pack = the staged
-        # buffer fill, launch = H2D + launches, fetch = the one D2H
-        self.anatomy = dict(prep_s=0.0, pack_s=0.0, launch_s=0.0, fetch_s=0.0,
-                            h2d_bytes=0, d2h_bytes=0)
+        # the bytes each call moves over the link
+        self.anatomy = dict(h2d_bytes=0, d2h_bytes=0)
 
     def reset_anatomy(self):
         for k in self.anatomy:
-            self.anatomy[k] = 0.0 if k.endswith("_s") else 0
+            self.anatomy[k] = 0
 
     def _buckets(self, qs, ts):
         """(bq, bt) bucket arrays of tasks; -1 where past the caps."""
@@ -145,34 +142,35 @@ class ExtendEngine:
         """Left tasks (lq, lt, h0l), then right tasks (rq, rt) with h0 = the
         left score of the same index.  Returns (left, right): dicts of (n,)
         int64 arrays by ``KEYS``."""
-        n = len(lq)
-        out_l = {k: np.zeros(n, np.int64) for k in KEYS}
-        out_r = {k: np.zeros(n, np.int64) for k in KEYS}
-        groups: List[Dict[Tuple[int, int], List[int]]] = []
-        (lbq, lbt), (rbq, rbt) = self._buckets(lq, lt), self._buckets(rq, rt)
-        host = (lbq < 0) | (rbq < 0)  # the host runs both directions
-        host_idx = np.flatnonzero(host).tolist()
-        for bq, bt in ((lbq, lbt), (rbq, rbt)):
-            shapes = np.unique(np.stack([bq, bt], 1)[~host], axis=0).tolist()
-            groups.append({(a, b): np.flatnonzero(~host & (bq == a) & (bt == b)).tolist()
-                           for a, b in shapes})
+        with Timer("extend.bucket"):
+            n = len(lq)
+            out_l = {k: np.zeros(n, np.int64) for k in KEYS}
+            out_r = {k: np.zeros(n, np.int64) for k in KEYS}
+            groups: List[Dict[Tuple[int, int], List[int]]] = []
+            (lbq, lbt), (rbq, rbt) = self._buckets(lq, lt), self._buckets(rq, rt)
+            host = (lbq < 0) | (rbq < 0)  # the host runs both directions
+            host_idx = np.flatnonzero(host).tolist()
+            for bq, bt in ((lbq, lbt), (rbq, rbt)):
+                shapes = np.unique(np.stack([bq, bt], 1)[~host], axis=0).tolist()
+                groups.append({(a, b): np.flatnonzero(~host & (bq == a) & (bt == b)).tolist()
+                               for a, b in shapes})
 
-        host_thread, host_err = None, []
-        if host_idx:
-            # the ctypes call releases the GIL: the host runs beside the card
-            self.stats["host_fallback"] += len(host_idx)
+            host_thread, host_err = None, []
+            if host_idx:
+                # the ctypes call releases the GIL: the host runs beside the card
+                self.stats["host_fallback"] += len(host_idx)
 
-            def host_work():
-                try:
-                    self._host(lq, lt, h0l, rq, rt, host_idx, out_l, out_r)
-                except BaseException as e:  # re-raised after join
-                    host_err.append(e)
+                def host_work():
+                    try:
+                        with Timer("extend.host"):
+                            self._host(lq, lt, h0l, rq, rt, host_idx, out_l, out_r)
+                    except BaseException as e:  # re-raised after join
+                        host_err.append(e)
 
-            host_thread = threading.Thread(target=host_work)
-            host_thread.start()
+                host_thread = threading.Thread(target=host_work)
+                host_thread.start()
 
-        with Timer("extend.device"):
-            t0 = time.perf_counter()
+        with Timer("extend.pack"):
             # staged layout: every group's int32 (qlen, tlen, side) first,
             # then its uint8 query and target planes
             metas, i32_parts, u8_parts = [], [], []
@@ -201,10 +199,9 @@ class ExtendEngine:
                 hv = staged.numpy()
                 hv[: 4 * n32].view(np.int32)[:] = np.concatenate(i32_parts)
                 hv[4 * n32:] = np.concatenate(u8_parts)
-            self.anatomy["pack_s"] += time.perf_counter() - t0
 
+        with Timer("extend.launch"):
             if metas:
-                t0 = time.perf_counter()
                 dev = staged.to(self.device, non_blocking=True)
                 self.anatomy["h2d_bytes"] += staged.numel()
                 d32 = dev[: 4 * n32].view(torch.int32)
@@ -227,11 +224,11 @@ class ExtendEngine:
                     for q, t, qlen, tlen, side in pending
                 ]
                 results = torch.cat(left + right, 1)
-                self.anatomy["launch_s"] += time.perf_counter() - t0
 
-                t0 = time.perf_counter()
+        # the one D2H copy waits for the card; then each group's columns
+        with Timer("extend.fetch"):
+            if metas:
                 allres = results.cpu().numpy()
-                self.anatomy["fetch_s"] += time.perf_counter() - t0
                 self.anatomy["d2h_bytes"] += allres.nbytes
                 col = 0
                 for d, idxs, _, _ in metas:
@@ -241,6 +238,7 @@ class ExtendEngine:
                     col += len(idxs)
                     for r, key in enumerate(KEYS):
                         tgt[key][ia] = block[r]
+        with Timer("extend.host_join"):
             if host_thread is not None:
                 host_thread.join()
                 if host_err:
@@ -251,8 +249,9 @@ class ExtendEngine:
         """Each seed: read, rseq, qbeg, rbeg_off, len -> resolved record
         (qBeg/qEnd/rBeg/rEnd/score/trueScore/width), seed_proc semantics."""
         self.stats["seeds"] += len(seeds)
-        t0 = time.perf_counter()
-        lq, lt, rq, rt = seed_tasks(seeds)
-        self.anatomy["prep_s"] += time.perf_counter() - t0
-        lres, rres = self.extend_both(lq, lt, [s["len"] for s in seeds], rq, rt)
-        return resolve_seeds(seeds, lres, rres, self.params.pen_clip)
+        with Timer("extend.prep"):
+            lq, lt, rq, rt = seed_tasks(seeds)
+            h0 = [s["len"] for s in seeds]
+        lres, rres = self.extend_both(lq, lt, h0, rq, rt)
+        with Timer("extend.resolve"):
+            return resolve_seeds(seeds, lres, rres, self.params.pen_clip)

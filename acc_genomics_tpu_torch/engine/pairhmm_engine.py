@@ -82,6 +82,17 @@ def sp_chunk_rows(rows: int) -> int:
     raise ValueError(f"rows {rows} must divide by a chunk size of {CHUNK_ROWS}")
 
 
+def _starts(lens: np.ndarray, offs: Optional[np.ndarray]) -> np.ndarray:
+    """``offs`` as contiguous int64, or, when None, the starts of
+    back-to-back runs of ``lens``."""
+    if offs is not None:
+        return np.ascontiguousarray(offs, np.int64)
+    starts = np.zeros(len(lens), np.int64)
+    if len(lens) > 1:
+        np.cumsum(lens[:-1].astype(np.int64), out=starts[1:])
+    return starts
+
+
 @dataclasses.dataclass
 class DispatchCostModel:
     """Calibrated host-vs-device dispatch gate, the worthFPGA analog
@@ -201,8 +212,9 @@ class _Pending:
     def scatter(self, raw: np.ndarray) -> int:
         """Wait for the D2H copy and write each lane's result into raw;
         returns the bytes fetched."""
-        if self.done is not None:
-            self.done.synchronize()
+        with Timer("pairhmm.wait"):
+            if self.done is not None:
+                self.done.synchronize()
         res = self.out_host.numpy()
         col = 0
         for sel in self.sels:
@@ -256,14 +268,6 @@ class PairHMMEngine:
         self.mesh = mesh
         self._data_size = mesh.shape["data"] if mesh is not None else 1
         self._seq_size = mesh.shape["seq"] if mesh is not None else 1
-        # mesh route, host seconds: pack_s the bucket packs, sp_pack_s the
-        # SP pack, launch_s the H2D copies and launches, fetch_s the D2H
-        # copy of the results (it waits for the card)
-        self.anatomy = dict(pack_s=0.0, sp_pack_s=0.0, launch_s=0.0, fetch_s=0.0)
-
-    def reset_anatomy(self):
-        for k in self.anatomy:
-            self.anatomy[k] = 0.0
 
     # -- dispatch calibration ---------------------------------------------
 
@@ -298,7 +302,7 @@ class PairHMMEngine:
         with Timer("pairhmm.stage"):
             staged = torch.empty(nbytes, dtype=torch.uint8, pin_memory=self._cuda)
             fill(staged.numpy())
-        with self._on_stream():
+        with Timer("pairhmm.launch"), self._on_stream():
             dev = staged.to(self.device, non_blocking=True)
             allres = torch.cat(run(dev))
             done = None
@@ -317,15 +321,16 @@ class PairHMMEngine:
         """Stage every bucket's byte planes in one host buffer, upload it
         once, launch one kernel (or one band pipeline) per bucket and
         start one D2H copy of all results."""
-        u8_offs, off = [], 0
-        for b in buckets:
-            u8_offs.append(off)
-            off += sum(p.shape[0] for p in b.planes) * len(b.lens)
-        off = -(-off // 16) * 16  # int32 side-band aligned
-        meta_offs = []
-        for b in buckets:
-            meta_offs.append(off)
-            off += 8 * len(b.lens)
+        with Timer("pairhmm.launch"):
+            u8_offs, off = [], 0
+            for b in buckets:
+                u8_offs.append(off)
+                off += sum(p.shape[0] for p in b.planes) * len(b.lens)
+            off = -(-off // 16) * 16  # int32 side-band aligned
+            meta_offs = []
+            for b in buckets:
+                meta_offs.append(off)
+                off += 8 * len(b.lens)
 
         def fill(hv):
             for b, uo, mo in zip(buckets, u8_offs, meta_offs):
@@ -373,11 +378,12 @@ class PairHMMEngine:
         (rs, q, i, d, c, offs, lens, hap, hoffs, hlens); ``groups``:
         (sel, rows, cols) per bucket, sel in launch order."""
         rs, q, i, d, c, offs, lens, hap, hoffs, hlens = streams
-        regions, off = [], 0
-        for sel, rows, cols in groups:
-            nf = (8 * rows + 1) * len(sel)
-            regions.append((off, off + 4 * nf))
-            off += 4 * (nf + (2 * rows + cols) * len(sel))
+        with Timer("pairhmm.launch"):
+            regions, off = [], 0
+            for sel, rows, cols in groups:
+                nf = (8 * rows + 1) * len(sel)
+                regions.append((off, off + 4 * nf))
+                off += 4 * (nf + (2 * rows + cols) * len(sel))
         ctx = self.ctx32
 
         def fill(hv):
@@ -414,99 +420,110 @@ class PairHMMEngine:
     def compute_pairs(self, testcases: Sequence[dict]) -> np.ndarray:
         """log10-likelihood for each testcase dict (rs,q,i,d,c,hap): fp32
         on the device, fp64 host recompute below MIN_ACCEPTED."""
+        with Timer("pairhmm.call"):
+            return self._compute_pairs(testcases)
+
+    def _compute_pairs(self, testcases: Sequence[dict]) -> np.ndarray:
         n = len(testcases)
         if n == 0:
             return np.zeros(0, np.float64)
-        self.stats["pairs"] += n
-        read_lens = [len(t["rs"]) for t in testcases]
-        hap_lens = [len(t["hap"]) for t in testcases]
+        with Timer("pairhmm.bucket"):
+            self.stats["pairs"] += n
+            read_lens = [len(t["rs"]) for t in testcases]
+            hap_lens = [len(t["hap"]) for t in testcases]
 
-        total_cells = sum(r * h for r, h in zip(read_lens, hap_lens))
-        if self.cost_model is not None:
-            # the byte-plane upload: five planes a read, one a hap, the
-            # int32 side-band
-            est_bytes = 5 * sum(read_lens) + sum(hap_lens) + 12 * n
-            use_host = not self.cost_model.device_worthwhile(total_cells, est_bytes)
-        else:
-            use_host = total_cells < self.min_device_cells
+            total_cells = sum(r * h for r, h in zip(read_lens, hap_lens))
+            if self.cost_model is not None:
+                # the byte-plane upload: five planes a read, one a hap, the
+                # int32 side-band
+                est_bytes = 5 * sum(read_lens) + sum(hap_lens) + 12 * n
+                use_host = not self.cost_model.device_worthwhile(total_cells, est_bytes)
+            else:
+                use_host = total_cells < self.min_device_cells
+            if not use_host:
+                # on a mesh with a seq axis, a pair whose haplotype (not
+                # read) is past the bucket cap runs on the DP x SP shards
+                # instead of the host
+                sp_cap = self.config.max_hap_len * self._seq_size
+                fits, sp_idx, over = [], [], []
+                for k in range(n):
+                    if read_lens[k] > self.config.max_read_len:
+                        over.append(k)
+                    elif hap_lens[k] <= self.config.max_hap_len:
+                        fits.append(k)
+                    elif self._seq_size > 1 and hap_lens[k] <= sp_cap:
+                        sp_idx.append(k)
+                    else:
+                        over.append(k)
+                raw = np.zeros(n, np.float32)
+                host_thread, host_err = None, []
+                if over:
+                    # host engine on a worker thread, concurrent with the
+                    # device buckets (the native forward releases the GIL)
+                    self.stats["host_fallback"] = (
+                        self.stats.get("host_fallback", 0) + len(over))
+
+                    def host_work():
+                        try:
+                            with Timer("pairhmm.host_forward"):
+                                raw[over] = native.pairhmm_forward(
+                                    [testcases[k] for k in over], np.float32
+                                )
+                        except BaseException as e:  # re-raised after join
+                            host_err.append(e)
+
+                    host_thread = threading.Thread(target=host_work)
+                    host_thread.start()
+
+                plan = plan_buckets(
+                    [read_lens[k] for k in fits],
+                    [hap_lens[k] for k in fits],
+                    self.config.read_buckets,
+                    self.config.hap_buckets,
+                )
+                fits_arr = np.asarray(fits, dtype=np.int64)
         if use_host:
-            host = native.pairhmm_forward(testcases, np.float32)
+            with Timer("pairhmm.host_forward"):
+                host = native.pairhmm_forward(testcases, np.float32)
             self.stats["host_native_calls"] = (
                 self.stats.get("host_native_calls", 0) + 1
             )
             self.stats["cells"] += total_cells
             return self._epilogue(testcases, host)
 
-        # on a mesh with a seq axis, a pair whose haplotype (not read) is
-        # past the bucket cap runs on the DP x SP shards instead of the host
-        sp_cap = self.config.max_hap_len * self._seq_size
-        fits, sp_idx, over = [], [], []
-        for k in range(n):
-            if read_lens[k] > self.config.max_read_len:
-                over.append(k)
-            elif hap_lens[k] <= self.config.max_hap_len:
-                fits.append(k)
-            elif self._seq_size > 1 and hap_lens[k] <= sp_cap:
-                sp_idx.append(k)
-            else:
-                over.append(k)
-        raw = np.zeros(n, np.float32)
-        host_thread, host_err = None, []
-        if over:
-            # host engine on a worker thread, concurrent with the device
-            # buckets (the native forward releases the GIL)
-            self.stats["host_fallback"] = self.stats.get("host_fallback", 0) + len(over)
-
-            def host_work():
-                try:
-                    raw[over] = native.pairhmm_forward(
-                        [testcases[k] for k in over], np.float32
-                    )
-                except BaseException as e:  # re-raised after join
-                    host_err.append(e)
-
-            host_thread = threading.Thread(target=host_work)
-            host_thread.start()
-
-        plan = plan_buckets(
-            [read_lens[k] for k in fits],
-            [hap_lens[k] for k in fits],
-            self.config.read_buckets,
-            self.config.hap_buckets,
-        )
-        fits_arr = np.asarray(fits, dtype=np.int64)
-        with Timer("pairhmm.device"):
-            if self.mesh is not None:
-                self._run_mesh(testcases, plan, fits_arr, sp_idx, raw)
-            else:
-                self._run_quals(testcases, plan, fits_arr, raw)
-        if host_thread is not None:
-            host_thread.join()
-            if host_err:
-                raise host_err[0]
+        if self.mesh is not None:
+            self._run_mesh(testcases, plan, fits_arr, sp_idx, raw)
+        else:
+            self._run_quals(testcases, plan, fits_arr, raw)
+        with Timer("pairhmm.host_join"):
+            if host_thread is not None:
+                host_thread.join()
+                if host_err:
+                    raise host_err[0]
         return self._epilogue(testcases, raw)
 
     def _run_quals(self, testcases, plan, fits_arr, raw: np.ndarray):
         """The byte-plane route: one quals pack a bucket, all launched
         from one staged upload, results scattered into ``raw``."""
         buckets = []
-        for (rows, cols), idxs in plan.groups.items():
-            max_pairs = self.config.max_batch_pairs
-            for lo in range(0, len(idxs), max_pairs):
-                chunk = fits_arr[idxs[lo : lo + max_pairs]]
-                pack = pack_pairhmm_quals(
-                    [testcases[k] for k in chunk], rows=rows, cols=cols,
-                    pad_lanes=False, sort_by_haplen=True,
-                )
-                self.stats["cells"] += pack.cells
-                sel = chunk if pack.perm is None else chunk[pack.perm]
-                buckets.append(
-                    _Bucket(
-                        sel,
-                        [pack.q, pack.i, pack.d, pack.c, pack.rs, pack.hap_ext],
-                        pack.rslen, pack.haplen, rows,
+        with Timer("pairhmm.pack_py"):
+            for (rows, cols), idxs in plan.groups.items():
+                max_pairs = self.config.max_batch_pairs
+                for lo in range(0, len(idxs), max_pairs):
+                    chunk = fits_arr[idxs[lo : lo + max_pairs]]
+                    pack = pack_pairhmm_quals(
+                        [testcases[k] for k in chunk], rows=rows, cols=cols,
+                        pad_lanes=False, sort_by_haplen=True,
                     )
-                )
+                    self.stats["cells"] += pack.cells
+                    sel = chunk if pack.perm is None else chunk[pack.perm]
+                    buckets.append(
+                        _Bucket(
+                            sel,
+                            [pack.q, pack.i, pack.d, pack.c, pack.rs, pack.hap_ext],
+                            pack.rslen, pack.haplen, rows,
+                        )
+                    )
         if buckets:
             self._launch(buckets).scatter(raw)
 
@@ -516,77 +533,74 @@ class PairHMMEngine:
         planes at the largest read bucket and ``seq`` x 128-aligned
         columns, staged and uploaded once (``_launch``) and run on the
         DP x SP pipeline.  Every result lands in ``raw``."""
-        jobs, sp_pending = [], None
+        packs, sp_pending = [], None
         with self._on_stream():
             if sp_idx:
                 self.stats["sp_pairs"] = self.stats.get("sp_pairs", 0) + len(sp_idx)
-                t0 = time.perf_counter()
-                rows = self.config.read_buckets[-1]
-                C = self.stats["sp_chunk_rows"] = sp_chunk_rows(rows)
-                step = self._seq_size * 128
-                max_hl = max(len(testcases[k]["hap"]) for k in sp_idx)
-                pack = pack_pairhmm_quals(
-                    [testcases[k] for k in sp_idx], rows=rows,
-                    cols=-(-max_hl // step) * step, lane_multiple=self._data_size,
-                )
-                t1 = time.perf_counter()
-                self.anatomy["sp_pack_s"] += t1 - t0
+                with Timer("pairhmm.sp_pack"):
+                    rows = self.config.read_buckets[-1]
+                    C = self.stats["sp_chunk_rows"] = sp_chunk_rows(rows)
+                    step = self._seq_size * 128
+                    max_hl = max(len(testcases[k]["hap"]) for k in sp_idx)
+                    pack = pack_pairhmm_quals(
+                        [testcases[k] for k in sp_idx], rows=rows,
+                        cols=-(-max_hl // step) * step, lane_multiple=self._data_size,
+                    )
                 sp_pending = self._launch([_Bucket(
                     np.asarray(sp_idx, np.int64),
                     [pack.q, pack.i, pack.d, pack.c, pack.rs, pack.hap_ext],
                     pack.rslen, pack.haplen, rows, C,
                 )])
                 self.stats["h2d_bytes"] = self.stats.get("h2d_bytes", 0) + sp_pending.h2d_bytes
-                self.anatomy["launch_s"] += time.perf_counter() - t1
-            for (rows, cols), idxs in plan.groups.items():
-                max_pairs = self.config.max_batch_pairs
-                for lo in range(0, len(idxs), max_pairs):
-                    chunk = fits_arr[idxs[lo : lo + max_pairs]]
-                    t0 = time.perf_counter()
-                    pack = pack_pairhmm_batch(
-                        [testcases[k] for k in chunk], rows=rows, cols=cols,
-                        dtype=np.float32, lane_multiple=self._data_size,
-                    )
-                    self.stats["cells"] += pack.cells
-                    self.stats["device_calls"] += 1
-                    t1 = time.perf_counter()
-                    self.anatomy["pack_s"] += t1 - t0
-                    res = pairhmm_forward_dp(self.mesh, *batch_to_torch(pack, self.device))
-                    self.anatomy["launch_s"] += time.perf_counter() - t1
-                    jobs.append((chunk, pack, res))
-            t0 = time.perf_counter()
-            if jobs:
-                allres = torch.cat([res for _, _, res in jobs]).cpu().numpy()
-                col = 0
-                for chunk, pack, res in jobs:
-                    raw[chunk] = pack.unsort(allres[col : col + len(res)])
-                    col += len(res)
-            if sp_pending is not None:
-                sp_pending.scatter(raw)
-            self.anatomy["fetch_s"] += time.perf_counter() - t0
+            with Timer("pairhmm.pack_py"):
+                for (rows, cols), idxs in plan.groups.items():
+                    max_pairs = self.config.max_batch_pairs
+                    for lo in range(0, len(idxs), max_pairs):
+                        chunk = fits_arr[idxs[lo : lo + max_pairs]]
+                        pack = pack_pairhmm_batch(
+                            [testcases[k] for k in chunk], rows=rows, cols=cols,
+                            dtype=np.float32, lane_multiple=self._data_size,
+                        )
+                        self.stats["cells"] += pack.cells
+                        self.stats["device_calls"] += 1
+                        packs.append((chunk, pack))
+            with Timer("pairhmm.launch"):
+                res = [pairhmm_forward_dp(self.mesh, *batch_to_torch(pack, self.device))
+                       for _, pack in packs]
+            # the D2H copy of the results waits for the card
+            with Timer("pairhmm.fetch"):
+                if packs:
+                    allres = torch.cat(res).cpu().numpy()
+                    col = 0
+                    for (chunk, pack), r in zip(packs, res):
+                        raw[chunk] = pack.unsort(allres[col : col + len(r)])
+                        col += len(r)
+                if sp_pending is not None:
+                    sp_pending.scatter(raw)
 
     def _epilogue(self, testcases, raw: np.ndarray) -> np.ndarray:
         """log10 conversion + fp64 recompute of fp32 underflows (the
         AVX-double recompute contract, FalconPairHMM.cpp:634-656)."""
-        n = len(testcases)
-        out = np.empty(n, np.float64)
-        ok = raw >= np.float32(self.config.min_accepted)
-        with np.errstate(divide="ignore"):
-            out[ok] = np.log10(raw[ok].astype(np.float64)) - np.float64(
-                self.ctx32.log10_initial_constant
-            )
-        bad = np.flatnonzero(~ok)
-        self.stats["recomputed"] += len(bad)
-        if len(bad):
-            ctx64 = PairHMMContext(np.float64)
-            with Timer("pairhmm.recompute64"):
-                r64 = native.pairhmm_forward(
-                    [testcases[i] for i in bad], np.float64
+        with Timer("pairhmm.epilogue"):
+            n = len(testcases)
+            out = np.empty(n, np.float64)
+            ok = raw >= np.float32(self.config.min_accepted)
+            with np.errstate(divide="ignore"):
+                out[ok] = np.log10(raw[ok].astype(np.float64)) - np.float64(
+                    self.ctx32.log10_initial_constant
                 )
-                out[bad] = np.log10(r64) - np.float64(
-                    ctx64.log10_initial_constant
-                )
-        return out
+            bad = np.flatnonzero(~ok)
+            self.stats["recomputed"] += len(bad)
+            if len(bad):
+                ctx64 = PairHMMContext(np.float64)
+                with Timer("pairhmm.recompute64"):
+                    r64 = native.pairhmm_forward(
+                        [testcases[i] for i in bad], np.float64
+                    )
+                    out[bad] = np.log10(r64) - np.float64(
+                        ctx64.log10_initial_constant
+                    )
+            return out
 
     def compute_matrix(self, reads: Sequence[dict], haps: Sequence[np.ndarray]) -> np.ndarray:
         """All read x hap likelihoods, read-major."""
@@ -608,9 +622,10 @@ class PairHMMEngine:
         gives each read length, offs optional start offsets), hap likewise
         (hlens, hoffs).  Bucketing, sorting, packing and the fp64
         recompute run on flat arrays with no per-pair Python."""
-        return self._flat_finalize(
-            self._flat_launch(rs, q, i, d, c, lens, hap, hlens, offs, hoffs)
-        )
+        with Timer("pairhmm.call"):
+            return self._flat_finalize(
+                self._flat_launch(rs, q, i, d, c, lens, hap, hlens, offs, hoffs)
+            )
 
     def _flat_launch(
         self, rs, q, i, d, c, lens, hap, hlens, offs=None, hoffs=None
@@ -623,18 +638,7 @@ class PairHMMEngine:
         n = len(lens)
         if n == 0:
             return np.zeros(0, np.float64)
-        if offs is None:
-            offs = np.zeros(n, np.int64)
-            if n > 1:
-                np.cumsum(lens[:-1].astype(np.int64), out=offs[1:])
-        else:
-            offs = np.ascontiguousarray(offs, np.int64)
-        if hoffs is None:
-            hoffs = np.zeros(n, np.int64)
-            if n > 1:
-                np.cumsum(hlens[:-1].astype(np.int64), out=hoffs[1:])
-        else:
-            hoffs = np.ascontiguousarray(hoffs, np.int64)
+        offs, hoffs = _starts(lens, offs), _starts(hlens, hoffs)
         if self.mesh is not None:  # the mesh route runs on the dict path
             tcs = [
                 dict(rs=rs[offs[k]:offs[k] + lens[k]], q=q[offs[k]:offs[k] + lens[k]],
@@ -643,82 +647,83 @@ class PairHMMEngine:
                      hap=hap[hoffs[k]:hoffs[k] + hlens[k]])
                 for k in range(n)
             ]
-            return self.compute_pairs(tcs)
-        self.stats["pairs"] += n
-        rs, q, i, d, c, hap = (
-            np.ascontiguousarray(a, np.uint8) for a in (rs, q, i, d, c, hap)
-        )
-        self.stats["cells"] += int((lens.astype(np.int64) * hlens).sum())
-
-        rbuckets = np.asarray(self.config.read_buckets, np.int32)
-        cbuckets = np.asarray(self.config.hap_buckets, np.int32)
-        # bucket of each pair (vectorized); oversize -> host
-        rb = np.searchsorted(rbuckets - 1, lens, side="left")
-        cb = np.searchsorted(cbuckets, hlens, side="left")
-        over = (rb >= len(rbuckets)) | (cb >= len(cbuckets))
-
-        raw = np.zeros(n, np.float32)
-        host_thread, host_err = None, []
-        over_idx = np.flatnonzero(over)
-        if len(over_idx):
-            self.stats["host_fallback"] = (
-                self.stats.get("host_fallback", 0) + len(over_idx)
+            return self._compute_pairs(tcs)
+        with Timer("pairhmm.bucket"):
+            self.stats["pairs"] += n
+            rs, q, i, d, c, hap = (
+                np.ascontiguousarray(a, np.uint8) for a in (rs, q, i, d, c, hap)
             )
+            self.stats["cells"] += int((lens.astype(np.int64) * hlens).sum())
 
-            def host_work():
-                try:
-                    out = np.empty(len(over_idx), np.float32)
-                    native.get_lib().pairhmm_forward_batch_f32(
-                        rs, q, i, d, c,
-                        np.ascontiguousarray(offs[over_idx]),
-                        np.ascontiguousarray(lens[over_idx]),
-                        hap, np.ascontiguousarray(hoffs[over_idx]),
-                        np.ascontiguousarray(hlens[over_idx]), len(over_idx),
-                        np.ascontiguousarray(self.ctx32.ph2pr, np.float32),
-                        np.ascontiguousarray(self.ctx32.match_to_match, np.float32),
-                        np.float32(self.ctx32.initial_constant), out,
-                    )
-                    raw[over_idx] = out
-                except BaseException as e:  # re-raised after join
-                    host_err.append(e)
+            rbuckets = np.asarray(self.config.read_buckets, np.int32)
+            cbuckets = np.asarray(self.config.hap_buckets, np.int32)
+            # bucket of each pair (vectorized); oversize -> host
+            rb = np.searchsorted(rbuckets - 1, lens, side="left")
+            cb = np.searchsorted(cbuckets, hlens, side="left")
+            over = (rb >= len(rbuckets)) | (cb >= len(cbuckets))
 
-            host_thread = threading.Thread(target=host_work)
-            host_thread.start()
-
-        code = rb * (len(cbuckets) + 1) + cb  # group id per pair
-        streams = (rs, q, i, d, c, offs, lens, hap, hoffs, hlens)
-        groups = []
-        for g in np.unique(code[~over]):
-            idxs = np.flatnonzero((code == g) & ~over)
-            gr, gc = divmod(int(g), len(cbuckets) + 1)
-            rows, cols = int(rbuckets[gr]), int(cbuckets[gc])
-            max_pairs = self.config.max_batch_pairs
-            for lo in range(0, len(idxs), max_pairs):
-                sel = idxs[lo : lo + max_pairs]
-                # longest haplotypes launch first (tail balance)
-                groups.append((sel[np.argsort(-hlens[sel], kind="stable")], rows, cols))
-        pending = None
-        with Timer("pairhmm.device"):
-            if groups and self.config.upload == "f32":
-                pending = self._launch_f32(streams, groups)
-            elif groups:
-                buckets = []
-                with Timer("pairhmm.pack"):
-                    for sel, rows, cols in groups:
-                        g_lens = np.ascontiguousarray(lens[sel])
-                        g_hlens = np.ascontiguousarray(hlens[sel])
-                        packed = native.pairhmm_pack_quals_flat(
-                            rs, q, i, d, c, np.ascontiguousarray(offs[sel]), g_lens,
-                            hap, np.ascontiguousarray(hoffs[sel]), g_hlens,
-                            rows, cols, HAP_PAD,
-                        )
-                        big = packed[0].base  # the one (6*rows + cols, bp) buffer
-                        buckets.append(_Bucket(sel, [big], g_lens, g_hlens, rows))
-                pending = self._launch(buckets)
-            if pending is not None:
-                self.stats["h2d_bytes"] = (
-                    self.stats.get("h2d_bytes", 0) + pending.h2d_bytes
+            raw = np.zeros(n, np.float32)
+            host_thread, host_err = None, []
+            over_idx = np.flatnonzero(over)
+            if len(over_idx):
+                self.stats["host_fallback"] = (
+                    self.stats.get("host_fallback", 0) + len(over_idx)
                 )
+
+                def host_work():
+                    try:
+                        with Timer("pairhmm.host_forward"):
+                            out = np.empty(len(over_idx), np.float32)
+                            native.get_lib().pairhmm_forward_batch_f32(
+                                rs, q, i, d, c,
+                                np.ascontiguousarray(offs[over_idx]),
+                                np.ascontiguousarray(lens[over_idx]),
+                                hap, np.ascontiguousarray(hoffs[over_idx]),
+                                np.ascontiguousarray(hlens[over_idx]), len(over_idx),
+                                np.ascontiguousarray(self.ctx32.ph2pr, np.float32),
+                                np.ascontiguousarray(self.ctx32.match_to_match, np.float32),
+                                np.float32(self.ctx32.initial_constant), out,
+                            )
+                            raw[over_idx] = out
+                    except BaseException as e:  # re-raised after join
+                        host_err.append(e)
+
+                host_thread = threading.Thread(target=host_work)
+                host_thread.start()
+
+            code = rb * (len(cbuckets) + 1) + cb  # group id per pair
+            groups = []
+            for g in np.unique(code[~over]):
+                idxs = np.flatnonzero((code == g) & ~over)
+                gr, gc = divmod(int(g), len(cbuckets) + 1)
+                rows, cols = int(rbuckets[gr]), int(cbuckets[gc])
+                max_pairs = self.config.max_batch_pairs
+                for lo in range(0, len(idxs), max_pairs):
+                    sel = idxs[lo : lo + max_pairs]
+                    # longest haplotypes launch first (tail balance)
+                    groups.append((sel[np.argsort(-hlens[sel], kind="stable")], rows, cols))
+        streams = (rs, q, i, d, c, offs, lens, hap, hoffs, hlens)
+        pending = None
+        if groups and self.config.upload == "f32":
+            pending = self._launch_f32(streams, groups)
+        elif groups:
+            buckets = []
+            with Timer("pairhmm.pack"):
+                for sel, rows, cols in groups:
+                    g_lens = np.ascontiguousarray(lens[sel])
+                    g_hlens = np.ascontiguousarray(hlens[sel])
+                    packed = native.pairhmm_pack_quals_flat(
+                        rs, q, i, d, c, np.ascontiguousarray(offs[sel]), g_lens,
+                        hap, np.ascontiguousarray(hoffs[sel]), g_hlens,
+                        rows, cols, HAP_PAD,
+                    )
+                    big = packed[0].base  # the one (6*rows + cols, bp) buffer
+                    buckets.append(_Bucket(sel, [big], g_lens, g_hlens, rows))
+            pending = self._launch(buckets)
+        if pending is not None:
+            self.stats["h2d_bytes"] = (
+                self.stats.get("h2d_bytes", 0) + pending.h2d_bytes
+            )
         return _FlatBatch(streams, raw, pending, host_thread, host_err)
 
     def _flat_finalize(self, batch) -> np.ndarray:
@@ -729,43 +734,45 @@ class PairHMMEngine:
             self.stats["d2h_bytes"] = (
                 self.stats.get("d2h_bytes", 0) + batch.pending.scatter(batch.raw)
             )
-        if batch.host_thread is not None:
-            batch.host_thread.join()
-            if batch.host_err:
-                raise batch.host_err[0]
+        with Timer("pairhmm.host_join"):
+            if batch.host_thread is not None:
+                batch.host_thread.join()
+                if batch.host_err:
+                    raise batch.host_err[0]
         return self._epilogue_flat(*batch.streams, batch.raw)
 
     def _epilogue_flat(
         self, rs, q, i, d, c, offs, lens, hap, hoffs, hlens, raw
     ) -> np.ndarray:
         """log10 + fp64 recompute on flat arrays (no per-pair dicts)."""
-        n = len(lens)
-        out = np.empty(n, np.float64)
-        ok = raw >= np.float32(self.config.min_accepted)
-        with np.errstate(divide="ignore"):
-            out[ok] = np.log10(raw[ok].astype(np.float64)) - np.float64(
-                self.ctx32.log10_initial_constant
-            )
-        bad = np.flatnonzero(~ok)
-        self.stats["recomputed"] += len(bad)
-        if len(bad):
-            ctx64 = PairHMMContext(np.float64)
-            r64 = np.empty(len(bad), np.float64)
-            with Timer("pairhmm.recompute64"):
-                native.get_lib().pairhmm_forward_batch_f64(
-                    rs, q, i, d, c,
-                    np.ascontiguousarray(offs[bad]),
-                    np.ascontiguousarray(lens[bad]),
-                    hap, np.ascontiguousarray(hoffs[bad]),
-                    np.ascontiguousarray(hlens[bad]), len(bad),
-                    np.ascontiguousarray(ctx64.ph2pr, np.float64),
-                    np.ascontiguousarray(ctx64.match_to_match, np.float64),
-                    np.float64(ctx64.initial_constant), r64,
+        with Timer("pairhmm.epilogue"):
+            n = len(lens)
+            out = np.empty(n, np.float64)
+            ok = raw >= np.float32(self.config.min_accepted)
+            with np.errstate(divide="ignore"):
+                out[ok] = np.log10(raw[ok].astype(np.float64)) - np.float64(
+                    self.ctx32.log10_initial_constant
                 )
-                out[bad] = np.log10(r64) - np.float64(
-                    ctx64.log10_initial_constant
-                )
-        return out
+            bad = np.flatnonzero(~ok)
+            self.stats["recomputed"] += len(bad)
+            if len(bad):
+                ctx64 = PairHMMContext(np.float64)
+                r64 = np.empty(len(bad), np.float64)
+                with Timer("pairhmm.recompute64"):
+                    native.get_lib().pairhmm_forward_batch_f64(
+                        rs, q, i, d, c,
+                        np.ascontiguousarray(offs[bad]),
+                        np.ascontiguousarray(lens[bad]),
+                        hap, np.ascontiguousarray(hoffs[bad]),
+                        np.ascontiguousarray(hlens[bad]), len(bad),
+                        np.ascontiguousarray(ctx64.ph2pr, np.float64),
+                        np.ascontiguousarray(ctx64.match_to_match, np.float64),
+                        np.float64(ctx64.initial_constant), r64,
+                    )
+                    out[bad] = np.log10(r64) - np.float64(
+                        ctx64.log10_initial_constant
+                    )
+            return out
 
     def compute_pairs_flat_stream(self, batches) -> list:
         """Pipelined multi-batch flat computation: batch k+1 is packed and
@@ -776,26 +783,15 @@ class PairHMMEngine:
         Returns a list of per-batch log10-likelihood arrays."""
         states: list = []
         outs: list = []
-        t_launch = t_final = 0.0
         for b in batches:
-            t0 = time.perf_counter()
-            states.append(self._flat_launch(*b))
-            t_launch += time.perf_counter() - t0
+            with Timer("pairhmm.stream_launch"):
+                states.append(self._flat_launch(*b))
             if len(states) > 1:
-                t0 = time.perf_counter()
-                outs.append(self._flat_finalize(states.pop(0)))
-                t_final += time.perf_counter() - t0
+                with Timer("pairhmm.stream_finalize"):
+                    outs.append(self._flat_finalize(states.pop(0)))
         while states:
-            t0 = time.perf_counter()
-            outs.append(self._flat_finalize(states.pop(0)))
-            t_final += time.perf_counter() - t0
-        # cumulative phase accounting: host pack + launch vs fetch-side wait
-        self.stats["stream_launch_s"] = (
-            self.stats.get("stream_launch_s", 0.0) + t_launch
-        )
-        self.stats["stream_finalize_s"] = (
-            self.stats.get("stream_finalize_s", 0.0) + t_final
-        )
+            with Timer("pairhmm.stream_finalize"):
+                outs.append(self._flat_finalize(states.pop(0)))
         return outs
 
     def compute_matrix_flat(
@@ -807,12 +803,7 @@ class PairHMMEngine:
         read_lens = np.asarray(read_lens, np.int32)
         hap_lens = np.asarray(hap_lens, np.int32)
         n_r, n_h = len(read_lens), len(hap_lens)
-        roffs = np.zeros(n_r, np.int64)
-        hoffs0 = np.zeros(n_h, np.int64)
-        if n_r > 1:
-            np.cumsum(read_lens[:-1].astype(np.int64), out=roffs[1:])
-        if n_h > 1:
-            np.cumsum(hap_lens[:-1].astype(np.int64), out=hoffs0[1:])
+        roffs, hoffs0 = _starts(read_lens, None), _starts(hap_lens, None)
         res = self.compute_pairs_flat(
             rs, q, i, d, c,
             np.repeat(read_lens, n_h), hap, np.tile(hap_lens, n_r),

@@ -8,10 +8,10 @@ device route:
 * reads group by length bucket (``config.read_buckets`` up to
   ``config.seq_length``) and launch in batches of at most
   ``config.batch_size`` reads, one thread a read;
-* every batch is launched before anything is fetched; then one small D2H
-  copy brings every read's count, flag and probe count, and one more
-  brings exactly the live intervals, gathered on the card; with no
-  interval anywhere nothing is gathered or copied;
+* every batch is staged, then every batch launched, before anything is
+  fetched; then one small D2H copy brings every read's count, flag and
+  probe count, and one more brings exactly the live intervals, gathered
+  on the card; with no interval anywhere nothing is gathered or copied;
 * reads past ``seq_length`` and reads the kernel flags (a chain or the
   output past its cap) rerun on the native host engine, on a worker
   thread concurrent with the device work (the flagged ones as soon as the
@@ -29,7 +29,6 @@ version.
 from __future__ import annotations
 
 import concurrent.futures
-import time
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -82,15 +81,12 @@ class SmemEngine:
         # probe_iters: FM-index extensions taken on the card (two occ
         # probes each), summed over reads
         self.stats = {"reads": 0, "overflow_reruns": 0, "probe_iters": 0}
-        # pack = host plane fill, launch = H2D + launches, wait = the
-        # counts' D2H (it waits for the kernels), fetch = the live
-        # intervals' gather and D2H
-        self.anatomy = dict(pack_s=0.0, launch_s=0.0, wait_s=0.0, fetch_s=0.0,
-                            h2d_bytes=0, d2h_bytes=0)
+        # the bytes each call moves over the link
+        self.anatomy = dict(h2d_bytes=0, d2h_bytes=0)
 
     def reset_anatomy(self):
         for k in self.anatomy:
-            self.anatomy[k] = 0.0 if k.endswith("_s") else 0
+            self.anatomy[k] = 0
 
     def _buckets(self) -> Tuple[int, ...]:
         """The read buckets below ``seq_length``, then ``seq_length`` itself
@@ -98,59 +94,60 @@ class SmemEngine:
         seq_len = self.config.seq_length
         return tuple(b for b in sorted(self.config.read_buckets) if b < seq_len) + (seq_len,)
 
-    def _launch(self, seq_tm: np.ndarray, lens: np.ndarray):
-        """Stage one batch in one pinned buffer (lengths, then the (L, n)
-        plane), upload it and launch the kernel; nothing is fetched."""
+    def _stage(self, seq_tm: np.ndarray, lens: np.ndarray) -> torch.Tensor:
+        """One batch in one buffer (pinned on CUDA): the int32 lengths,
+        then the (L, n) plane."""
         L, n = seq_tm.shape
-        t0 = time.perf_counter()
         staged = torch.empty(4 * n + L * n, dtype=torch.uint8,
                              pin_memory=self.device.type == "cuda")
         hv = staged.numpy()
         hv[: 4 * n].view(np.int32)[:] = lens
-        hv[4 * n:] = seq_tm.reshape(-1)
-        t1 = time.perf_counter()
-        self.anatomy["pack_s"] += t1 - t0
+        hv[4 * n:].reshape(L, n)[:] = seq_tm
+        return staged
+
+    def _launch(self, staged: torch.Tensor, L: int, n: int):
+        """Upload one staged batch and launch the kernel; nothing is
+        fetched."""
         dev = staged.to(self.device, non_blocking=True)
         self.anatomy["h2d_bytes"] += staged.numel()
         seq, lens = dev[4 * n:].view(L, n), dev[: 4 * n].view(torch.int32)
         if self.mesh is not None:
-            out = smem_collect_dp(self.mesh, self.indexes, seq, lens, self.params)
-        else:
-            out = smem_collect(self.index, seq, lens, self.params)
-        self.anatomy["launch_s"] += time.perf_counter() - t1
-        return out
+            return smem_collect_dp(self.mesh, self.indexes, seq, lens, self.params)
+        return smem_collect(self.index, seq, lens, self.params)
 
     def _run(self, batches: Sequence[Tuple[np.ndarray, np.ndarray]]):
-        """Launch every (seq_tm, lens) batch, then fetch: (flat (tot, 5)
-        int32 intervals read-major over all batches, counts (N,), flags
-        (N,) bool), reads in batch order.  Flagged reads count 0."""
-        launched = [self._launch(seq, lens) for seq, lens in batches]
+        """Stage and launch every (seq_tm, lens) batch, then fetch: (flat
+        (tot, 5) int32 intervals read-major over all batches, counts (N,),
+        flags (N,) bool), reads in batch order.  Flagged reads count 0."""
+        with Timer("smem.pack"):
+            staged = [self._stage(seq, lens) for seq, lens in batches]
+        with Timer("smem.launch"):
+            launched = [self._launch(st, *seq.shape) for st, (seq, _) in zip(staged, batches)]
         if not launched:
             return np.zeros((0, 5), np.int32), np.zeros(0, np.int64), np.zeros(0, bool)
-        t0 = time.perf_counter()
-        counts_dev = torch.cat([torch.stack(o[1:]) for o in launched], 1)
-        counts = counts_dev.cpu().numpy()
-        t1 = time.perf_counter()
-        self.anatomy["wait_s"] += t1 - t0
+        # the counts' D2H copy waits for the kernels
+        with Timer("smem.wait"):
+            counts_dev = torch.cat([torch.stack(o[1:]) for o in launched], 1)
+            counts = counts_dev.cpu().numpy()
         self.anatomy["d2h_bytes"] += counts.nbytes
-        self.stats["probe_iters"] += int(counts[2].sum(dtype=np.int64))
-        flags = counts[1] != 0
-        live = np.where(flags, 0, counts[0]).astype(np.int64)
-        tot = int(live.sum())
-        flat = np.zeros((0, 5), np.int32)
-        if tot:
-            parts, col = [], 0
-            for mem, mem_n, flag, _ in launched:
-                bsz = mem.shape[2]
-                nn = torch.where(flag != 0, 0, mem_n)
-                used = int(live[col: col + bsz].max(initial=0))
-                col += bsz
-                if used:
-                    rows = torch.arange(used, device=mem.device)[None, :]
-                    parts.append(mem[:, :used].permute(2, 1, 0)[rows < nn[:, None]])
-            flat = torch.cat(parts).cpu().numpy()
-            self.anatomy["d2h_bytes"] += flat.nbytes
-        self.anatomy["fetch_s"] += time.perf_counter() - t1
+        with Timer("smem.fetch"):
+            self.stats["probe_iters"] += int(counts[2].sum(dtype=np.int64))
+            flags = counts[1] != 0
+            live = np.where(flags, 0, counts[0]).astype(np.int64)
+            tot = int(live.sum())
+            flat = np.zeros((0, 5), np.int32)
+            if tot:
+                parts, col = [], 0
+                for mem, mem_n, flag, _ in launched:
+                    bsz = mem.shape[2]
+                    nn = torch.where(flag != 0, 0, mem_n)
+                    used = int(live[col: col + bsz].max(initial=0))
+                    col += bsz
+                    if used:
+                        rows = torch.arange(used, device=mem.device)[None, :]
+                        parts.append(mem[:, :used].permute(2, 1, 0)[rows < nn[:, None]])
+                flat = torch.cat(parts).cpu().numpy()
+                self.anatomy["d2h_bytes"] += flat.nbytes
         return flat, live, flags
 
     def _host(self, reads: Sequence[np.ndarray]) -> List[List[dict]]:
@@ -161,7 +158,9 @@ class SmemEngine:
 
     def collect(self, reads: Sequence[np.ndarray]) -> List[List[dict]]:
         """3-pass SMEM intervals of each read, as interval dicts."""
-        return split_dicts(*self.collect_flat(reads))
+        flat, counts = self.collect_flat(reads)
+        with Timer("smem.split"):
+            return split_dicts(flat, counts)
 
     def collect_flat(self, reads: Sequence[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
         """The intervals of ``collect`` as arrays: (flat (tot, 5) int64
@@ -179,10 +178,11 @@ class SmemEngine:
                   for b in np.unique(which[lens <= seq_len])}
 
         def host_work(idx):
-            for k, res in zip(idx, self._host([reads[k] for k in idx])):
-                host_out[k] = np.array(
-                    [[iv["x0"], iv["x1"], iv["s"], iv["start"], iv["end"]] for iv in res],
-                    np.int64).reshape(-1, 5)
+            with Timer("smem.host_collect"):
+                for k, res in zip(idx, self._host([reads[k] for k in idx])):
+                    host_out[k] = np.array(
+                        [[iv["x0"], iv["x1"], iv["s"], iv["start"], iv["end"]] for iv in res],
+                        np.int64).reshape(-1, 5)
 
         # host reruns on one worker thread beside the device work (the
         # ctypes call releases the GIL)
@@ -190,15 +190,13 @@ class SmemEngine:
             futures = [pool.submit(host_work, host_idx)] if host_idx else []
             seg = max(int(self.config.batch_size), 1)
             order, batches = [], []
-            t0 = time.perf_counter()
-            for bucket, idxs in groups.items():
-                for lo in range(0, len(idxs), seg):
-                    part = idxs[lo:lo + seg]
-                    order += part
-                    batches.append(pack_tm([reads[k] for k in part], bucket, len(part)))
-            self.anatomy["pack_s"] += time.perf_counter() - t0
-            with Timer("smem.device"):
-                flat, live, flags = self._run(batches)
+            with Timer("smem.pack"):
+                for bucket, idxs in groups.items():
+                    for lo in range(0, len(idxs), seg):
+                        part = idxs[lo:lo + seg]
+                        order += part
+                        batches.append(pack_tm([reads[k] for k in part], bucket, len(part)))
+            flat, live, flags = self._run(batches)
             rerun = [k for k, f in zip(order, flags) if f]
             if rerun:
                 self.stats["overflow_reruns"] += len(rerun)
@@ -235,10 +233,8 @@ class SmemEngine:
         bsz = seq_tm.shape[1]
         self.stats["reads"] += bsz
         seg = max(int(self.config.batch_size), 1)
-        with Timer("smem.device"):
-            flat, live, flags = self._run(
-                [(np.ascontiguousarray(seq_tm[:, lo:lo + seg]), lens[lo:lo + seg])
-                 for lo in range(0, bsz, seg)])
+        flat, live, flags = self._run(
+            [(seq_tm[:, lo:lo + seg], lens[lo:lo + seg]) for lo in range(0, bsz, seg)])
         self.stats["overflow_reruns"] += int(flags.sum())
         used = int(live.max(initial=0))
         mem = np.zeros((5, used, bsz), np.int32)

@@ -12,9 +12,9 @@ The port of ``acc_genomics_tpu/engine/sw_engine.py`` on its device route
   ref or alt, run on the native host engine, on a worker thread
   concurrent with the launches (an empty side aligns to ``([], 0)``, the
   JAX engine's answer on its XLA route);
-* every chunk is launched before anything is fetched, and the packed
-  element buffers of all chunks come back in one D2H copy; the backtrack
-  matrices never leave the card;
+* every chunk is packed, then every chunk launched, before anything is
+  fetched, and the packed element buffers of all chunks come back in one
+  D2H copy; the backtrack matrices never leave the card;
 * pairs whose CIGAR overflows an element buffer rerun on the oracle;
 * with a ``mesh``, each chunk's pairs run data-parallel over its "data"
   axis (``parallel/sharded_kernels.sw_device_dp``).
@@ -35,6 +35,7 @@ from acc_genomics_tpu_torch.device import resolve_device
 from acc_genomics_tpu_torch.ops.sw.batch import (
     sw_align_batch_decode,
     sw_align_batch_launch,
+    sw_align_batch_stage,
 )
 from acc_genomics_tpu_torch import native
 from acc_genomics_tpu_torch.config import SWConfig
@@ -81,76 +82,84 @@ class SWEngine:
         strategy: int,
     ) -> List[Tuple[list, int]]:
         """Batch alignment -> [(cigar, offset)] in input order."""
-        n = len(refs)
-        self.stats["pairs"] += n
-        out: List = [None] * n
-        groups = {}
-        host_idx = []
-        for k, (r, a) in enumerate(zip(refs, alts)):
-            br = self._bucket(len(r))
-            ba = self._bucket(len(a))
-            if br is None or ba is None or len(r) == 0 or len(a) == 0:
-                host_idx.append(k)
-                continue
-            groups.setdefault((br, ba), []).append(k)
+        with Timer("sw.group"):
+            n = len(refs)
+            self.stats["pairs"] += n
+            out: List = [None] * n
+            groups = {}
+            host_idx = []
+            for k, (r, a) in enumerate(zip(refs, alts)):
+                br = self._bucket(len(r))
+                ba = self._bucket(len(a))
+                if br is None or ba is None or len(r) == 0 or len(a) == 0:
+                    host_idx.append(k)
+                    continue
+                groups.setdefault((br, ba), []).append(k)
 
-        host_thread, host_err = None, []
-        if host_idx:
-            # the native host engine on a worker thread, concurrent with the
-            # launches below (the ctypes call releases the GIL)
-            self.stats["host_fallback"] += len(host_idx)
+            host_thread, host_err = None, []
+            if host_idx:
+                # the native host engine on a worker thread, concurrent with
+                # the launches below (the ctypes call releases the GIL)
+                self.stats["host_fallback"] += len(host_idx)
 
-            def host_work():
-                try:
-                    walked = native.sw_align_host(
-                        [refs[k] for k in host_idx], [alts[k] for k in host_idx],
-                        strategy, self.params,
-                        max_elems=max(self.config.max_seq_len, 1536),
-                    )
-                    for j, k in enumerate(host_idx):
-                        res = walked[j]
-                        if res is None:  # element overflow
-                            res = sw_align_oracle(
-                                refs[k], alts[k], strategy, params=self.params
+                def host_work():
+                    try:
+                        with Timer("sw.host_align"):
+                            walked = native.sw_align_host(
+                                [refs[k] for k in host_idx], [alts[k] for k in host_idx],
+                                strategy, self.params,
+                                max_elems=max(self.config.max_seq_len, 1536),
                             )
-                        out[k] = res
-                except BaseException as e:  # re-raised after join
-                    host_err.append(e)
+                            for j, k in enumerate(host_idx):
+                                res = walked[j]
+                                if res is None:  # element overflow
+                                    res = sw_align_oracle(
+                                        refs[k], alts[k], strategy, params=self.params
+                                    )
+                                out[k] = res
+                    except BaseException as e:  # re-raised after join
+                        host_err.append(e)
 
-            host_thread = threading.Thread(target=host_work)
-            host_thread.start()
+                host_thread = threading.Thread(target=host_work)
+                host_thread.start()
 
-        chunks = []
-        for (rows, cols), idxs in groups.items():
-            seg = chunk_pairs(rows, cols, self.config.max_batch)
-            chunks += [(rows, cols, idxs[lo : lo + seg])
-                       for lo in range(0, len(idxs), seg)]
-        with Timer("sw.device"):
+            chunks = []
+            for (rows, cols), idxs in groups.items():
+                seg = chunk_pairs(rows, cols, self.config.max_batch)
+                for lo in range(0, len(idxs), seg):
+                    part = idxs[lo : lo + seg]
+                    chunks.append((rows, cols, part, [refs[k] for k in part],
+                                   [alts[k] for k in part]))
+        with Timer("sw.pack"):
+            staged = [sw_align_batch_stage(grefs, galts, rows, cols, self.device.type == "cuda")
+                      for rows, cols, _, grefs, galts in chunks]
+        with Timer("sw.launch"):
             pend = []
-            for rows, cols, idxs in chunks:
-                grefs = [refs[k] for k in idxs]
-                galts = [alts[k] for k in idxs]
+            for (rows, cols, idxs, grefs, galts), st in zip(chunks, staged):
                 launched = sw_align_batch_launch(
                     grefs, galts, strategy, rows, cols, self.device, self.params,
-                    mesh=self.mesh,
+                    mesh=self.mesh, staged=st,
                 )
                 pend.append((idxs, grefs, galts, launched))
                 self.stats["cells"] += sum(len(r) * len(a) for r, a in zip(grefs, galts))
-            if pend:
-                allpacked = torch.cat([p[3].packed for p in pend], 1).cpu().numpy()
-                col = 0
-                for idxs, grefs, galts, _ in pend:
-                    walked = sw_align_batch_decode(
-                        allpacked[:, col : col + len(idxs)], grefs, galts,
-                        strategy, self.params,
-                    )
-                    col += len(idxs)
-                    for j, k in enumerate(idxs):
-                        out[k] = walked[j]
-        if host_thread is not None:
-            host_thread.join()
-            if host_err:
-                raise host_err[0]
+        with Timer("sw.fetch"):
+            allpacked = (torch.cat([p[3].packed for p in pend], 1).cpu().numpy()
+                         if pend else None)
+        with Timer("sw.decode"):
+            col = 0
+            for idxs, grefs, galts, _ in pend:
+                walked = sw_align_batch_decode(
+                    allpacked[:, col : col + len(idxs)], grefs, galts,
+                    strategy, self.params,
+                )
+                col += len(idxs)
+                for j, k in enumerate(idxs):
+                    out[k] = walked[j]
+        with Timer("sw.host_join"):
+            if host_thread is not None:
+                host_thread.join()
+                if host_err:
+                    raise host_err[0]
         return out
 
     def align_one_ref(self, ref: np.ndarray, alts: Sequence[np.ndarray], strategy: int):

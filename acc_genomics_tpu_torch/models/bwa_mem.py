@@ -16,7 +16,6 @@ with the caller.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, NamedTuple, Sequence
 
 import numpy as np
@@ -24,6 +23,7 @@ import torch
 
 from acc_genomics_tpu_torch.engine.packing import pack_rows
 from acc_genomics_tpu_torch.ops.extend.kernel import FUSED_KEYS, extend_seeds_fused
+from acc_genomics_tpu_torch.utils.timer import Timer
 
 
 @dataclasses.dataclass
@@ -59,37 +59,42 @@ class BwaMemSeeding:
         return fm.sa[iv["x0"]: iv["x0"] + min(iv["s"], self.max_occ)]
 
     def map_reads(self, reads: Sequence[np.ndarray]) -> List[List[SeedHit]]:
-        fm = self.engine.smem.fm
-        intervals = self.engine.smem.collect(list(reads))
-        tasks, meta = [], []
-        text_len = fm.seq_len
-        for rid, (read, ivs) in enumerate(zip(reads, intervals)):
-            for iv in ivs:
-                slen = iv["end"] - iv["start"]
-                for pos in self._positions(fm, iv):
-                    pos = int(pos)
-                    span_lo = max(0, pos - iv["start"] - self.flank)
-                    span_hi = min(text_len,
-                                  pos + slen + (len(read) - iv["end"]) + self.flank)
-                    tasks.append(dict(read=read, rseq=fm.text[span_lo:span_hi],
-                                      qbeg=iv["start"], rbeg_off=pos - span_lo,
-                                      len=slen))
-                    meta.append((rid, iv, pos))
-        results = self.engine.extend.extend_seeds(tasks) if tasks else []
-        out: List[List[SeedHit]] = [[] for _ in reads]
-        for (rid, iv, pos), res in zip(meta, results):
-            out[rid].append(SeedHit(
-                read_id=rid,
-                qbeg=res["qBeg"],
-                qend=iv["end"] + res["qEnd"],
-                rbeg=pos + res["rBeg"],
-                rend=pos + (iv["end"] - iv["start"]) + res["rEnd"],
-                score=res["score"],
-                true_score=res["trueScore"],
-                width=res["width"],
-                occ=iv["s"],
-            ))
-        return out
+        with Timer("bwa.host"):
+            fm = self.engine.smem.fm
+            with Timer("bwa.host.smem"):
+                intervals = self.engine.smem.collect(list(reads))
+            with Timer("bwa.host.enum"):
+                tasks, meta = [], []
+                text_len = fm.seq_len
+                for rid, (read, ivs) in enumerate(zip(reads, intervals)):
+                    for iv in ivs:
+                        slen = iv["end"] - iv["start"]
+                        for pos in self._positions(fm, iv):
+                            pos = int(pos)
+                            span_lo = max(0, pos - iv["start"] - self.flank)
+                            span_hi = min(text_len,
+                                          pos + slen + (len(read) - iv["end"]) + self.flank)
+                            tasks.append(dict(read=read, rseq=fm.text[span_lo:span_hi],
+                                              qbeg=iv["start"], rbeg_off=pos - span_lo,
+                                              len=slen))
+                            meta.append((rid, iv, pos))
+            with Timer("bwa.host.extend"):
+                results = self.engine.extend.extend_seeds(tasks) if tasks else []
+            with Timer("bwa.host.hits"):
+                out: List[List[SeedHit]] = [[] for _ in reads]
+                for (rid, iv, pos), res in zip(meta, results):
+                    out[rid].append(SeedHit(
+                        read_id=rid,
+                        qbeg=res["qBeg"],
+                        qend=iv["end"] + res["qEnd"],
+                        rbeg=pos + res["rBeg"],
+                        rend=pos + (iv["end"] - iv["start"]) + res["rEnd"],
+                        score=res["score"],
+                        true_score=res["trueScore"],
+                        width=res["width"],
+                        occ=iv["s"],
+                    ))
+            return out
 
 
 def _no_seeds(host_idx):
@@ -124,9 +129,10 @@ class BwaMemDevicePipeline:
             self.device)
         self.params = engine.extend.config.params()
         self.stats = {"reads": 0, "seeds": 0, "device_calls": 0}
-        # per-phase anatomy: smem = collect_arrays (its launches and
-        # fetches), enum = the host seed enumeration and staging, extend =
-        # the H2D copy, the launch and the result's D2H copy
+        # per-phase anatomy, the readings of the spans bwa.pipe.smem
+        # (collect_arrays, its launches and fetches), bwa.pipe.enum (the
+        # host seed enumeration and staging) and bwa.pipe.extend (the H2D
+        # copy, the launch and the result's D2H copy)
         self.anatomy = dict(smem_s=0.0, enum_s=0.0, extend_s=0.0,
                             h2d_bytes=0, d2h_bytes=0)
 
@@ -147,31 +153,58 @@ class BwaMemDevicePipeline:
         host_read_idx for the host route).  Seeds are in enumeration order:
         read-major, interval order, occurrence ascending.  ``map_reads``
         wraps it into SeedHit lists."""
-        t0 = time.perf_counter()
-        width = self._bucket(reads)
-        n_reads = len(reads)
-        self.stats["reads"] += n_reads
-        host_idx = [k for k, r in enumerate(reads) if len(r) > width]
-        empty = np.zeros(0, np.uint8)
-        rows_rm, rlens = pack_rows([empty if len(r) > width else r for r in reads],
-                                   width, n_reads)
-        mem, mem_n, overflow = self.engine.smem.collect_arrays(
-            np.ascontiguousarray(rows_rm.T), rlens)
-        host_idx.extend(np.flatnonzero(overflow).tolist())
-        t1 = time.perf_counter()
-        self.anatomy["smem_s"] += t1 - t0
+        with Timer("bwa.pipe.smem") as smem:
+            width = self._bucket(reads)
+            n_reads = len(reads)
+            self.stats["reads"] += n_reads
+            host_idx = [k for k, r in enumerate(reads) if len(r) > width]
+            empty = np.zeros(0, np.uint8)
+            rows_rm, rlens = pack_rows([empty if len(r) > width else r for r in reads],
+                                       width, n_reads)
+            mem, mem_n, overflow = self.engine.smem.collect_arrays(
+                np.ascontiguousarray(rows_rm.T), rlens)
+            host_idx.extend(np.flatnonzero(overflow).tolist())
+        self.anatomy["smem_s"] += smem.elapsed
 
-        # vectorised seed enumeration (the host model's order)
+        with Timer("bwa.pipe.enum") as enum:
+            enumerated = self._enumerate(mem, mem_n, rows_rm, rlens)
+        self.anatomy["enum_s"] += enum.elapsed
+        if enumerated is None:
+            return _no_seeds(host_idx)
+        staged, tot, b_idx, qbeg, slen, occ = enumerated
+
+        with Timer("bwa.pipe.extend") as extend:
+            dev = staged.to(self.device, non_blocking=True)
+            self.anatomy["h2d_bytes"] += staged.numel()
+            n32 = 4 * tot + n_reads
+            d32 = dev[: 4 * n32].view(torch.int32)
+            seeds = d32[: 4 * tot].view(4, tot)
+            out = extend_seeds_fused(
+                self.sa_dev, self.text_dev, dev[4 * n32:].view(n_reads, width),
+                d32[4 * tot:], seeds[0], seeds[1], seeds[2], seeds[3], self.flank,
+                self.params)
+            with Timer("bwa.pipe.fetch"):
+                hits = out.cpu().numpy()
+            self.anatomy["d2h_bytes"] += hits.nbytes
+        self.anatomy["extend_s"] += extend.elapsed
+        return hits, b_idx, (qbeg, slen, occ), host_idx
+
+    def _enumerate(self, mem, mem_n, rows_rm, rlens):
+        """The vectorised seed enumeration (the host model's order) and the
+        one staged buffer (pinned on CUDA): the int32 seed arrays (rows,
+        qbeg, slen, read) and read lengths, then the read-major read
+        matrix.  -> (staged, the seed count, each seed's read, qbeg, slen,
+        occ), or None without a seed."""
         used = mem.shape[1]
         if used == 0:
-            return _no_seeds(host_idx)
+            return None
         valid = np.arange(used)[None, :] < mem_n[:, None]  # (B, used)
         s_bi = mem[2].T  # (B, used)
         occ_f = np.where(valid, np.minimum(s_bi, self.max_occ), 0).reshape(-1)
         tot = int(occ_f.sum())
         self.stats["seeds"] += tot
         if tot == 0:
-            return _no_seeds(host_idx)
+            return None
         seed_iv = np.repeat(np.arange(len(occ_f)), occ_f)
         starts = np.cumsum(occ_f) - occ_f
         j = np.arange(tot) - starts[seed_iv]
@@ -181,30 +214,14 @@ class BwaMemDevicePipeline:
         slen = mem[4].T.reshape(-1)[seed_iv].astype(np.int32) - qbeg
         occ = s_bi.reshape(-1)[seed_iv].astype(np.int32)
 
-        # one staged buffer: the int32 seed arrays and read lengths, then
-        # the read-major read matrix
-        n32 = 4 * tot + n_reads
+        n32 = 4 * tot + len(rlens)
         staged = torch.empty(4 * n32 + rows_rm.size, dtype=torch.uint8,
                              pin_memory=self.device.type == "cuda")
         hv = staged.numpy()
         hv[: 4 * n32].view(np.int32)[:] = np.concatenate([rows, qbeg, slen, b_idx, rlens])
         hv[4 * n32:] = rows_rm.reshape(-1)
         self.stats["device_calls"] += 1
-        t2 = time.perf_counter()
-        self.anatomy["enum_s"] += t2 - t1
-
-        dev = staged.to(self.device, non_blocking=True)
-        self.anatomy["h2d_bytes"] += staged.numel()
-        d32 = dev[: 4 * n32].view(torch.int32)
-        seeds = d32[: 4 * tot].view(4, tot)
-        out = extend_seeds_fused(
-            self.sa_dev, self.text_dev, dev[4 * n32:].view(n_reads, width),
-            d32[4 * tot:], seeds[0], seeds[1], seeds[2], seeds[3], self.flank,
-            self.params)
-        hits = out.cpu().numpy()
-        self.anatomy["d2h_bytes"] += hits.nbytes
-        self.anatomy["extend_s"] += time.perf_counter() - t2
-        return hits, b_idx, (qbeg, slen, occ), host_idx
+        return staged, tot, b_idx, qbeg, slen, occ
 
     def map_reads(self, reads: Sequence[np.ndarray]) -> List[List[SeedHit]]:
         hits, rid, (qbeg, slen, occ), host_idx = self.map_reads_arrays(reads)

@@ -14,7 +14,6 @@ The engine argument is any object with an ``sw`` (``SWEngine``) and a
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Sequence
 
 import numpy as np
@@ -23,6 +22,7 @@ from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
 from acc_genomics_tpu_torch.engine.sw_engine import SWEngine
 from acc_genomics_tpu_torch.native import cat_u8
 from acc_genomics_tpu_torch.ops.sw.reference import OVERHANG_SOFTCLIP
+from acc_genomics_tpu_torch.utils.timer import Timer
 
 
 @dataclasses.dataclass
@@ -44,8 +44,8 @@ class HaplotypeCallerCore:
     def __init__(self, engine, overhang_strategy: int = OVERHANG_SOFTCLIP):
         self.engine = engine
         self.overhang_strategy = overhang_strategy
-        # phase split: sw = realignment batch, pairhmm = likelihood batch,
-        # host = cross-product set-up
+        # phase split, the readings of the spans hc.realign (sw),
+        # hc.likelihoods (pairhmm) and hc.prepare (host)
         self.anatomy = dict(sw_s=0.0, pairhmm_s=0.0, host_s=0.0)
 
     def reset_anatomy(self):
@@ -68,52 +68,53 @@ class HaplotypeCallerCore:
         ``pairhmm.compute_pairs_flat``: reads and haplotypes are
         concatenated once, and each region's cross product is offsets into
         those streams."""
-        t0 = time.perf_counter()
-        sw_refs, sw_alts = [], []
-        for ref_win, haps, reads in regions:
-            sw_refs.extend([ref_win] * len(haps))
-            sw_alts.extend(haps)
+        with Timer("hc.prepare") as prepare:
+            sw_refs, sw_alts = [], []
+            for ref_win, haps, reads in regions:
+                sw_refs.extend([ref_win] * len(haps))
+                sw_alts.extend(haps)
 
-        all_reads = [r for _, _, reads in regions for r in reads]
-        all_haps = [h for _, haps, _ in regions for h in haps]
-        cat = lambda key: cat_u8([r[key] for r in all_reads])[0]
-        _, roffs, rlens = cat_u8([r["rs"] for r in all_reads])
-        hapc, hoffs, hlens = cat_u8(list(all_haps))
-        p_offs, p_lens, p_hoffs, p_hlens = [], [], [], []
-        ri = hi = 0
-        for _, haps, reads in regions:
-            nr, nh = len(reads), len(haps)
-            p_offs.append(np.repeat(roffs[ri : ri + nr], nh))
-            p_lens.append(np.repeat(rlens[ri : ri + nr], nh))
-            p_hoffs.append(np.tile(hoffs[hi : hi + nh], nr))
-            p_hlens.append(np.tile(hlens[hi : hi + nh], nr))
-            ri += nr
-            hi += nh
+            all_reads = [r for _, _, reads in regions for r in reads]
+            all_haps = [h for _, haps, _ in regions for h in haps]
+            _, roffs, rlens = cat_u8([r["rs"] for r in all_reads])
+            hapc, hoffs, hlens = cat_u8(list(all_haps))
+            p_offs, p_lens, p_hoffs, p_hlens = [], [], [], []
+            ri = hi = 0
+            for _, haps, reads in regions:
+                nr, nh = len(reads), len(haps)
+                p_offs.append(np.repeat(roffs[ri : ri + nr], nh))
+                p_lens.append(np.repeat(rlens[ri : ri + nr], nh))
+                p_hoffs.append(np.tile(hoffs[hi : hi + nh], nr))
+                p_hlens.append(np.tile(hlens[hi : hi + nh], nr))
+                ri += nr
+                hi += nh
 
-        t1 = time.perf_counter()
-        cigars_flat = self.engine.sw.align(sw_refs, sw_alts, self.overhang_strategy)
-        t2 = time.perf_counter()
-        liks_flat = self.engine.pairhmm.compute_pairs_flat(
-            cat("rs"), cat("q"), cat("i"), cat("d"), cat("c"),
-            np.concatenate(p_lens) if p_lens else np.zeros(0, np.int32),
-            hapc,
-            np.concatenate(p_hlens) if p_hlens else np.zeros(0, np.int32),
-            offs=np.concatenate(p_offs) if p_offs else np.zeros(0, np.int64),
-            hoffs=np.concatenate(p_hoffs) if p_hoffs else np.zeros(0, np.int64),
-        )
-        t3 = time.perf_counter()
-        self.anatomy["host_s"] += t1 - t0
-        self.anatomy["sw_s"] += t2 - t1
-        self.anatomy["pairhmm_s"] += t3 - t2
+        with Timer("hc.realign") as realign:
+            cigars_flat = self.engine.sw.align(sw_refs, sw_alts, self.overhang_strategy)
+        with Timer("hc.likelihoods") as likelihoods:
+            with Timer("hc.cat"):
+                cat = lambda key: cat_u8([r[key] for r in all_reads])[0]
+                rs, q, i, d, c = (cat(key) for key in ("rs", "q", "i", "d", "c"))
+                flat = lambda parts, dtype: (
+                    np.concatenate(parts) if parts else np.zeros(0, dtype))
+                pair_lens, pair_hlens = flat(p_lens, np.int32), flat(p_hlens, np.int32)
+                pair_offs, pair_hoffs = flat(p_offs, np.int64), flat(p_hoffs, np.int64)
+            liks_flat = self.engine.pairhmm.compute_pairs_flat(
+                rs, q, i, d, c, pair_lens, hapc, pair_hlens,
+                offs=pair_offs, hoffs=pair_hoffs)
+        self.anatomy["host_s"] += prepare.elapsed
+        self.anatomy["sw_s"] += realign.elapsed
+        self.anatomy["pairhmm_s"] += likelihoods.elapsed
 
-        out: List[RegionResult] = []
-        c_off = l_off = 0
-        for _, haps, reads in regions:
-            nh, nr = len(haps), len(reads)
-            hap_cigars = cigars_flat[c_off : c_off + nh]
-            c_off += nh
-            lik = liks_flat[l_off : l_off + nr * nh].reshape(nr, nh)
-            l_off += nr * nh
-            best = np.argmax(lik, axis=1) if nh else np.zeros(nr, int)
-            out.append(RegionResult(lik, hap_cigars, best))
+        with Timer("hc.results"):
+            out: List[RegionResult] = []
+            c_off = l_off = 0
+            for _, haps, reads in regions:
+                nh, nr = len(haps), len(reads)
+                hap_cigars = cigars_flat[c_off : c_off + nh]
+                c_off += nh
+                lik = liks_flat[l_off : l_off + nr * nh].reshape(nr, nh)
+                l_off += nr * nh
+                best = np.argmax(lik, axis=1) if nh else np.zeros(nr, int)
+                out.append(RegionResult(lik, hap_cigars, best))
         return out

@@ -51,22 +51,38 @@ class Launched:
     staged: torch.Tensor
 
 
-def sw_align_batch_launch(
-    refs, alts, strategy: int, rows: int, cols: int, device: torch.device,
-    params: SWParams = DEFAULT_SW_PARAMS, mesh=None,
-) -> Launched:
-    """Pack one bucket into a staging buffer (pinned on CUDA), upload it
-    with one copy and launch the fill and the walk on the current stream,
-    without fetching.  With a ``mesh`` the pairs run data-parallel over it
-    (``sw_device_dp``) and ``packed`` lands on its first device."""
+def _meta_at(n: int, rows: int, cols: int) -> int:
+    """Where a bucket's int32 lengths start in its staging buffer (aligned)."""
+    return -(-n * (rows + cols) // 16) * 16
+
+
+def sw_align_batch_stage(refs, alts, rows: int, cols: int, pin: bool) -> torch.Tensor:
+    """One bucket's staging buffer (pinned with ``pin``): the (n, rows)
+    ref plane, the (n, cols) alt plane, then their int32 lengths."""
     n = len(refs)
-    cuda = device.type == "cuda"
-    meta_at = -(-n * (rows + cols) // 16) * 16  # int32 lengths, aligned
-    staged = torch.empty(meta_at + 8 * n, dtype=torch.uint8, pin_memory=cuda)
+    meta_at = _meta_at(n, rows, cols)
+    staged = torch.empty(meta_at + 8 * n, dtype=torch.uint8, pin_memory=pin)
     hv = staged.numpy()
     meta = hv[meta_at:].view(np.int32).reshape(2, n)
     meta[0] = pack_planes(refs, rows, hv[: n * rows].reshape(n, rows))
     meta[1] = pack_planes(alts, cols, hv[n * rows : n * (rows + cols)].reshape(n, cols))
+    return staged
+
+
+def sw_align_batch_launch(
+    refs, alts, strategy: int, rows: int, cols: int, device: torch.device,
+    params: SWParams = DEFAULT_SW_PARAMS, mesh=None, staged=None,
+) -> Launched:
+    """Pack one bucket into a staging buffer (pinned on CUDA), upload it
+    with one copy and launch the fill and the walk on the current stream,
+    without fetching.  ``staged``: the bucket's buffer from
+    ``sw_align_batch_stage``, packed here when None.  With a ``mesh`` the
+    pairs run data-parallel over it (``sw_device_dp``) and ``packed``
+    lands on its first device."""
+    n = len(refs)
+    if staged is None:
+        staged = sw_align_batch_stage(refs, alts, rows, cols, device.type == "cuda")
+    meta_at = _meta_at(n, rows, cols)
     dev = staged.to(device, non_blocking=True)
     ref = dev[: n * rows].view(n, rows)
     alt = dev[n * rows : n * (rows + cols)].view(n, cols)

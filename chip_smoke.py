@@ -179,6 +179,20 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float) -> dict:
             "library_ms": None}
 
 
+def spans_now() -> dict:
+    """The program's span registry (``utils/timer.timers``) now."""
+    from acc_genomics_tpu_torch.utils.timer import timers
+
+    return timers()
+
+
+def spans_ms(before: dict, calls: int) -> dict:
+    """ms a call of each of the program's spans opened since the
+    ``spans_now()`` reading ``before``."""
+    return {k: round(1e3 * (v["total_s"] - before.get(k, {}).get("total_s", 0.0)) / calls, 4)
+            for k, v in spans_now().items() if v["count"] != before.get(k, {}).get("count", 0)}
+
+
 def nbytes(*tensors) -> int:
     import torch
 
@@ -709,6 +723,7 @@ def extend_phases(card: str, dev) -> dict:
     torch.cuda.synchronize()
     eng.reset_anatomy()
     EK.LAUNCHES.clear()
+    before = spans_now()
     times, results = [], []
     for _ in range(E2E_REPEATS):
         t0 = time.perf_counter()
@@ -720,7 +735,8 @@ def extend_phases(card: str, dev) -> dict:
     say(f"ExtendEngine main path: {len(seeds)} seeds, {launches} launches over "
         f"{E2E_REPEATS} calls; seeds_per_s median={len(seeds) / med:.1f} "
         f"min={len(seeds) / max(times):.1f} max={len(seeds) / min(times):.1f}; "
-        f"anatomy per call {anatomy} [{card}]")
+        f"anatomy per call {anatomy}; spans ms a call {spans_ms(before, E2E_REPEATS)} "
+        f"[{card}]")
     check(launches > 0 and launches == E2E_REPEATS * eng.stats["device_calls"]
           // (E2E_REPEATS + 1), f"ExtendEngine launches {launches}")
     check(all(r == first for r in results), "repeated ExtendEngine calls differ")
@@ -911,6 +927,7 @@ def smem_bwa_phases(card: str, dev, extend_entry: dict) -> dict:
     torch.cuda.synchronize()
     eng.reset_anatomy()
     MK.LAUNCHES.clear()
+    before = spans_now()
     times, results = [], []
     for _ in range(HC_REPEATS):
         t0 = time.perf_counter()
@@ -922,7 +939,8 @@ def smem_bwa_phases(card: str, dev, extend_entry: dict) -> dict:
     say(f"SmemEngine main path: {len(reads)} reads, {smem_launches} launches over "
         f"{HC_REPEATS} calls; reads_per_s median={len(reads) / med:.1f} "
         f"min={len(reads) / max(times):.1f} max={len(reads) / min(times):.1f}; "
-        f"anatomy per call {anatomy}; stats {eng.stats} [{card}]")
+        f"anatomy per call {anatomy}; spans ms a call {spans_ms(before, HC_REPEATS)}; "
+        f"stats {eng.stats} [{card}]")
     check(smem_launches == HC_REPEATS, f"SmemEngine launches {smem_launches}")
     check(all(r == first for r in results), "repeated SmemEngine calls differ")
     check(first == native.smem_collect_host(fm, reads, params), "SmemEngine vs native host")
@@ -1309,7 +1327,7 @@ def mesh_phase(card: str, dev) -> dict:
     del fp32, calls, sp_calls, sp_args, res_by_c
 
     # -- 15b. PairHMMEngine(mesh=...) main path -----------------------------------
-    eng.reset_anatomy()
+    before = spans_now()
     s0 = dict(eng.stats)
     h2d0 = eng.stats.get("h2d_bytes", 0)
     K.LAUNCHES.clear()
@@ -1323,12 +1341,11 @@ def mesh_phase(card: str, dev) -> dict:
     dp_launches = dict(K.LAUNCHES)
     h2d = (eng.stats.get("h2d_bytes", 0) - h2d0) // HC_REPEATS
     med = statistics.median(times)
-    anatomy = {k: round(v / HC_REPEATS, 6) for k, v in eng.anatomy.items()}
     sp_pairs = eng.stats["sp_pairs"] - s0["sp_pairs"]
     say(f"PairHMMEngine(mesh=(1, 4)) compute_matrix_flat: {n_pairs} pairs, {cells} cells; "
         f"e2e_s median={med:.5f} min={min(times):.5f} max={max(times):.5f} (n={HC_REPEATS}); "
         f"gcups median={cells / med / 1e9:.3f} min={cells / max(times) / 1e9:.3f} "
-        f"max={cells / min(times) / 1e9:.3f}; anatomy s per call {anatomy}; launches "
+        f"max={cells / min(times) / 1e9:.3f}; spans ms a call {spans_ms(before, HC_REPEATS)}; launches "
         f"{launches} {dp_launches}; sp_pairs {sp_pairs} host_fallback "
         f"{eng.stats.get('host_fallback', 0)}; C {eng.stats['sp_chunk_rows']}; h2d bytes a "
         f"call {h2d} [{card}]")
@@ -1512,9 +1529,10 @@ def dispatch_phase(card: str, f0, reads, haps, lik_arith, lik_gather, batch_cell
     h2d = {"f32": f32.stats["h2d_bytes"], "quals": quals.stats["h2d_bytes"]}
     clear_launches()
     times = {"f32": [], "quals": []}
-    # the launch side's host timers a call: "pairhmm.device" = pack, stage,
-    # H2D and launches; "pairhmm.pack" the byte planes' native pack;
-    # "pairhmm.stage" the pinned buffer and its fill (the f32 pack itself)
+    # the program's spans a call (host clocks): "pairhmm.call" the whole
+    # call; "pairhmm.pack" the byte planes' native pack; "pairhmm.stage"
+    # the pinned buffer and its fill (the f32 pack itself); "pairhmm.launch"
+    # the H2D copy and the launches; "pairhmm.wait" the wait for the card
     sides = {"f32": [], "quals": []}
     for order in (("quals", "f32"), ("f32", "quals")) * 3:  # in turns
         for name in order:

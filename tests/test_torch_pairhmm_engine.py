@@ -22,6 +22,7 @@ from acc_genomics_tpu.ops.pairhmm.reference import pairhmm_loglik_oracle
 from acc_genomics_tpu_torch.config import PairHMMConfig
 from acc_genomics_tpu_torch.engine import plan_buckets
 from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
+from acc_genomics_tpu_torch.utils.timer import timers
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 COUNTERS = ("pairs", "recomputed", "cells", "device_calls", "host_fallback",
@@ -187,8 +188,11 @@ def test_flat_stream_matches_single_calls(rng):
     ]
     cfg = PairHMMConfig(read_buckets=(32, 64), hap_buckets=(64,))
     eng = PairHMMEngine(cfg, device="cpu")
+    before = timers()
     got = eng.compute_pairs_flat_stream(batches)
-    assert len(got) == 3 and eng.stats["stream_launch_s"] > 0
+    spans = {k: v["count"] - before.get(k, {"count": 0})["count"] for k, v in timers().items()}
+    assert len(got) == 3
+    assert spans["pairhmm.stream_launch"] == spans["pairhmm.stream_finalize"] == 3
     for b, g in zip(batches, got):
         single = PairHMMEngine(cfg, device="cpu").compute_pairs_flat(*b)
         np.testing.assert_allclose(g, single, rtol=1e-12)

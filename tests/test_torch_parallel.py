@@ -71,6 +71,7 @@ from acc_genomics_tpu_torch.parallel.sharded_kernels import (
     sw_extend_dp,
     sw_fill_dp,
 )
+from acc_genomics_tpu_torch.utils.timer import timers
 
 CPU = torch.device("cpu")
 LANES_JAX = 128  # the JAX Pallas forms take lanes in blocks of 128
@@ -274,9 +275,11 @@ def test_engine_routes_long_haps_to_sp(seed):
     tcs = _sp_pairs(seed)
     port = PairHMMEngine(PairHMMConfig(**cfg), device="cpu", mesh=_mesh((4, 2)))
     port.min_device_cells = 0
+    before = timers()
     got = port.compute_pairs(tcs)
+    spans = {k: v["count"] - before.get(k, {"count": 0})["count"] for k, v in timers().items()}
     assert port.stats["sp_pairs"] == 2 and port.stats.get("host_fallback", 0) == 0
-    assert port.anatomy["sp_pack_s"] > 0 and port.anatomy["fetch_s"] > 0
+    assert spans["pairhmm.sp_pack"] == 1 and spans["pairhmm.fetch"] == 1
     jax_eng = JaxPairHMMEngine(JaxPairHMMConfig(**cfg), use_pallas=True,
                                mesh=jax_make_mesh((4, 2)))
     jax_eng._interpret = True

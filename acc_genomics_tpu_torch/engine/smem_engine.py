@@ -46,6 +46,13 @@ from acc_genomics_tpu_torch.ops.smem.index import FMIndex
 from acc_genomics_tpu_torch.ops.smem.reference import mem_collect_intv_oracle
 from acc_genomics_tpu_torch.utils.timer import Timer
 
+
+def _iv_array(ivs: List[dict]) -> np.ndarray:
+    """Interval dicts -> (k, 5) int64 [x0, x1, s, start, end]."""
+    return np.array([[iv["x0"], iv["x1"], iv["s"], iv["start"], iv["end"]] for iv in ivs],
+                    np.int64).reshape(-1, 5)
+
+
 def split_dicts(flat: np.ndarray, counts: np.ndarray) -> List[List[dict]]:
     """(tot, 5) intervals, read-major, and per-read counts -> per-read
     lists of interval dicts (one ``tolist`` for the whole batch)."""
@@ -150,11 +157,23 @@ class SmemEngine:
                 self.anatomy["d2h_bytes"] += flat.nbytes
         return flat, live, flags
 
-    def _host(self, reads: Sequence[np.ndarray]) -> List[List[dict]]:
-        res = native.smem_collect_host(self.fm, list(reads), self.params)
-        # None: a read with more intervals than the host buffer holds
-        return [r if r is not None else mem_collect_intv_oracle(self.fm, rd, self.params)
-                for r, rd in zip(res, reads)]
+    def host_arrays(self, reads: Sequence[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+        """The native host engine's intervals of ``reads``, nothing on the
+        card: (flat (tot, 5) int64 [x0, x1, s, start, end], read-major in
+        read order and each read's in the oracle's order; counts (N,)
+        int64).  A read past the host buffer takes the oracle."""
+        out_mem, out_n = native.smem_collect_host_arrays(self.fm, list(reads), self.params)
+        cap = out_mem.shape[1]
+        counts = out_n.astype(np.int64)
+        if (counts > cap).any():
+            per = [out_mem[k, :c] if c <= cap else _iv_array(
+                mem_collect_intv_oracle(self.fm, reads[k], self.params))
+                for k, c in enumerate(counts.tolist())]
+            counts = np.fromiter(map(len, per), np.int64, len(per))
+            return np.concatenate(per or [np.zeros((0, 5), np.int64)]), counts
+        rows = np.repeat(np.arange(len(counts)) * cap - (np.cumsum(counts) - counts), counts)
+        rows += np.arange(len(rows))
+        return out_mem.reshape(-1, 5)[rows], counts
 
     def collect(self, reads: Sequence[np.ndarray]) -> List[List[dict]]:
         """3-pass SMEM intervals of each read, as interval dicts."""
@@ -179,10 +198,8 @@ class SmemEngine:
 
         def host_work(idx):
             with Timer("smem.host_collect"):
-                for k, res in zip(idx, self._host([reads[k] for k in idx])):
-                    host_out[k] = np.array(
-                        [[iv["x0"], iv["x1"], iv["s"], iv["start"], iv["end"]] for iv in res],
-                        np.int64).reshape(-1, 5)
+                flat, counts = self.host_arrays([reads[k] for k in idx])
+                host_out.update(zip(idx, np.split(flat, np.cumsum(counts)[:-1])))
 
         # host reruns on one worker thread beside the device work (the
         # ctypes call releases the GIL)
@@ -227,7 +244,7 @@ class SmemEngine:
         codes, lens (B,).  Returns (mem (5, used, B) int32 [x0, x1, s,
         start, end], mem_n (B,), overflow (B,) bool), used the largest
         count.  Flagged reads (``overflow``) carry no intervals here;
-        callers route them through the host path."""
+        callers rerun them on the host (``host_arrays``)."""
         seq_tm = np.asarray(seq_tm, np.uint8)
         lens = np.asarray(lens, np.int32)
         bsz = seq_tm.shape[1]

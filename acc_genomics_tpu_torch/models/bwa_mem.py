@@ -8,9 +8,10 @@ span of the read's length plus ``flank`` on both sides, then left and
 right extension of every seed in one call (``ExtendEngine.extend_seeds``).
 ``BwaMemDevicePipeline`` gives the same results with the suffix array and
 the text resident on the card: intervals as arrays
-(``SmemEngine.collect_arrays``), a vectorised seed enumeration, and one
-launch of the fused extension step per call.  Chaining and pairing stay
-with the caller.
+(``SmemEngine.collect_arrays``, and the native host engine for the reads
+whose chain or output overflows the kernel's caps), a vectorised seed
+enumeration, and one launch of the fused extension step per call.
+Chaining and pairing stay with the caller.
 """
 
 from __future__ import annotations
@@ -97,6 +98,27 @@ class BwaMemSeeding:
             return out
 
 
+def _flat_intervals(mem, mem_n):
+    """``collect_arrays``' (5, used, B) intervals -> (flat (tot, 5),
+    read-major, each read's in its order; counts (B,) int64)."""
+    counts = mem_n.astype(np.int64)
+    valid = np.arange(mem.shape[1])[None, :] < counts[:, None]  # (B, used)
+    return mem.transpose(2, 1, 0)[valid], counts
+
+
+def _merge_intervals(flat, counts, idx, sub_flat, sub_counts):
+    """Read-major intervals with those of reads ``idx`` (none of them in
+    ``flat``) taken from ``sub_flat``, read-major over ``idx``, and
+    ``sub_counts``."""
+    src = np.cumsum(counts) - counts  # each read's first row in the sources
+    src[idx] = len(flat) + np.cumsum(sub_counts) - sub_counts
+    counts = counts.copy()
+    counts[idx] = sub_counts
+    rows = np.repeat(src - (np.cumsum(counts) - counts), counts)
+    rows += np.arange(len(rows))
+    return np.concatenate([flat, sub_flat])[rows], counts
+
+
 def _no_seeds(host_idx):
     empty = np.zeros(0, np.int32)
     return (np.zeros((len(FUSED_KEYS), 0), np.int32), empty, (empty,) * 3, host_idx)
@@ -108,11 +130,14 @@ class BwaMemDevicePipeline:
     The same results as :class:`BwaMemSeeding` (same seed enumeration, the
     same extension semantics), with the suffix array (int32) and the text
     (uint8, both strands) put on the engine's device once, here.  A call
-    costs the SMEM round trips of ``collect_arrays``, one H2D copy of the
-    seeds and the reads, one launch of ``extend_seeds_fused`` and one D2H
-    copy of its (8, N) result.  ``engine``: anything with ``.smem`` (an
-    ``SmemEngine`` with its index) and ``.extend`` (an ``ExtendEngine``),
-    such as ``GenomicsEngine`` or ``BwaEngines``.
+    costs the SMEM round trips of ``collect_arrays``, the native host SMEM
+    of the reads it flags (``SmemEngine.host_arrays``, on the calling
+    thread), one H2D copy of every read's seeds and the reads, one launch
+    of ``extend_seeds_fused`` and one D2H copy of its (8, N) result.  Only
+    reads longer than the call's bucket take ``BwaMemSeeding``.
+    ``engine``: anything with ``.smem`` (an ``SmemEngine`` with its index)
+    and ``.extend`` (an ``ExtendEngine``), such as ``GenomicsEngine`` or
+    ``BwaEngines``.
     """
 
     def __init__(self, engine, max_occ: int = 8, flank: int = 100):
@@ -130,11 +155,13 @@ class BwaMemDevicePipeline:
         self.params = engine.extend.config.params()
         self.stats = {"reads": 0, "seeds": 0, "device_calls": 0}
         # per-phase anatomy, the readings of the spans bwa.pipe.smem
-        # (collect_arrays, its launches and fetches), bwa.pipe.enum (the
-        # host seed enumeration and staging) and bwa.pipe.extend (the H2D
-        # copy, the launch and the result's D2H copy)
-        self.anatomy = dict(smem_s=0.0, enum_s=0.0, extend_s=0.0,
-                            h2d_bytes=0, d2h_bytes=0)
+        # (collect_arrays, its launches and fetches), bwa.pipe.rerun (the
+        # native SMEM rerun of the reads the kernel flags), bwa.pipe.enum
+        # (the host seed enumeration and staging) and bwa.pipe.extend (the
+        # H2D copy, the launch and the result's D2H copy); rerun_reads
+        # counts the flagged reads rerun natively and extended on the card
+        self.anatomy = dict(smem_s=0.0, rerun_s=0.0, enum_s=0.0, extend_s=0.0,
+                            h2d_bytes=0, d2h_bytes=0, rerun_reads=0)
 
     def reset_anatomy(self):
         for k in self.anatomy:
@@ -150,9 +177,10 @@ class BwaMemDevicePipeline:
     def map_reads_arrays(self, reads: Sequence[np.ndarray]):
         """-> (hits (8, N) int32 [qBeg qEndRel rBeg rEndRel score trueScore
         width pos], seed readid (N,), seed meta (qbeg, slen, occ) arrays,
-        host_read_idx for the host route).  Seeds are in enumeration order:
-        read-major, interval order, occurrence ascending.  ``map_reads``
-        wraps it into SeedHit lists."""
+        host_read_idx for the host route: the reads longer than the
+        bucket).  Seeds are in enumeration order: read-major, interval
+        order, occurrence ascending.  ``map_reads`` wraps it into SeedHit
+        lists."""
         with Timer("bwa.pipe.smem") as smem:
             width = self._bucket(reads)
             n_reads = len(reads)
@@ -163,11 +191,20 @@ class BwaMemDevicePipeline:
                                        width, n_reads)
             mem, mem_n, overflow = self.engine.smem.collect_arrays(
                 np.ascontiguousarray(rows_rm.T), rlens)
-            host_idx.extend(np.flatnonzero(overflow).tolist())
         self.anatomy["smem_s"] += smem.elapsed
+        # the flagged reads' intervals from the native host engine, merged
+        # read-major with the card's
+        flat, counts = _flat_intervals(mem, mem_n)
+        rerun = np.flatnonzero(overflow)
+        if len(rerun):
+            with Timer("bwa.pipe.rerun") as rr:
+                rflat, rcounts = self.engine.smem.host_arrays([reads[k] for k in rerun])
+            self.anatomy["rerun_s"] += rr.elapsed
+            self.anatomy["rerun_reads"] += len(rerun)
+            flat, counts = _merge_intervals(flat, counts, rerun, rflat, rcounts)
 
         with Timer("bwa.pipe.enum") as enum:
-            enumerated = self._enumerate(mem, mem_n, rows_rm, rlens)
+            enumerated = self._enumerate(flat, counts, rows_rm, rlens)
         self.anatomy["enum_s"] += enum.elapsed
         if enumerated is None:
             return _no_seeds(host_idx)
@@ -189,30 +226,27 @@ class BwaMemDevicePipeline:
         self.anatomy["extend_s"] += extend.elapsed
         return hits, b_idx, (qbeg, slen, occ), host_idx
 
-    def _enumerate(self, mem, mem_n, rows_rm, rlens):
-        """The vectorised seed enumeration (the host model's order) and the
-        one staged buffer (pinned on CUDA): the int32 seed arrays (rows,
-        qbeg, slen, read) and read lengths, then the read-major read
-        matrix.  -> (staged, the seed count, each seed's read, qbeg, slen,
-        occ), or None without a seed."""
-        used = mem.shape[1]
-        if used == 0:
+    def _enumerate(self, flat, counts, rows_rm, rlens):
+        """The vectorised seed enumeration (the host model's order) over
+        read-major intervals ``flat`` (tot, 5) [x0, x1, s, start, end] and
+        each read's ``counts``, and the one staged buffer (pinned on CUDA):
+        the int32 seed arrays (rows, qbeg, slen, read) and read lengths,
+        then the read-major read matrix.  -> (staged, the seed count, each
+        seed's read, qbeg, slen, occ), or None without a seed."""
+        if len(flat) == 0:
             return None
-        valid = np.arange(used)[None, :] < mem_n[:, None]  # (B, used)
-        s_bi = mem[2].T  # (B, used)
-        occ_f = np.where(valid, np.minimum(s_bi, self.max_occ), 0).reshape(-1)
-        tot = int(occ_f.sum())
+        occ_iv = np.minimum(flat[:, 2], self.max_occ)
+        tot = int(occ_iv.sum())
         self.stats["seeds"] += tot
         if tot == 0:
             return None
-        seed_iv = np.repeat(np.arange(len(occ_f)), occ_f)
-        starts = np.cumsum(occ_f) - occ_f
-        j = np.arange(tot) - starts[seed_iv]
-        b_idx = (seed_iv // used).astype(np.int32)
-        rows = (mem[0].T.reshape(-1)[seed_iv] + j).astype(np.int32)
-        qbeg = mem[3].T.reshape(-1)[seed_iv].astype(np.int32)
-        slen = mem[4].T.reshape(-1)[seed_iv].astype(np.int32) - qbeg
-        occ = s_bi.reshape(-1)[seed_iv].astype(np.int32)
+        # each seed's occurrence within its interval
+        j = np.arange(tot) - np.repeat(np.cumsum(occ_iv) - occ_iv, occ_iv)
+        b_idx = np.repeat(np.repeat(np.arange(len(counts), dtype=np.int32), counts), occ_iv)
+        rows = (np.repeat(flat[:, 0], occ_iv) + j).astype(np.int32)
+        qbeg = np.repeat(flat[:, 3], occ_iv).astype(np.int32)
+        slen = np.repeat(flat[:, 4], occ_iv).astype(np.int32) - qbeg
+        occ = np.repeat(flat[:, 2], occ_iv).astype(np.int32)
 
         n32 = 4 * tot + len(rlens)
         staged = torch.empty(4 * n32 + rows_rm.size, dtype=torch.uint8,
@@ -226,21 +260,18 @@ class BwaMemDevicePipeline:
     def map_reads(self, reads: Sequence[np.ndarray]) -> List[List[SeedHit]]:
         hits, rid, (qbeg, slen, occ), host_idx = self.map_reads_arrays(reads)
         out: List[List[SeedHit]] = [[] for _ in reads]
-        host_set = set(host_idx)
         qend = (qbeg + slen + hits[1]).tolist()
         rbeg = (hits[7] + hits[2]).tolist()
         rend = (hits[7] + slen + hits[3]).tolist()
         for t, (r, q0, score, ts, w, oc) in enumerate(zip(
                 rid.tolist(), hits[0].tolist(), hits[4].tolist(), hits[5].tolist(),
                 hits[6].tolist(), occ.tolist())):
-            if r not in host_set:
-                out[r].append(SeedHit(read_id=r, qbeg=q0, qend=qend[t], rbeg=rbeg[t],
-                                      rend=rend[t], score=score, true_score=ts,
-                                      width=w, occ=oc))
-        if host_set:
-            order = sorted(host_set)
+            out[r].append(SeedHit(read_id=r, qbeg=q0, qend=qend[t], rbeg=rbeg[t],
+                                  rend=rend[t], score=score, true_score=ts,
+                                  width=w, occ=oc))
+        if host_idx:
             sub = BwaMemSeeding(self.engine, self.max_occ, self.flank).map_reads(
-                [reads[k] for k in order])
-            for r, hlist in zip(order, sub):
+                [reads[k] for k in host_idx])
+            for r, hlist in zip(host_idx, sub):
                 out[r] = [dataclasses.replace(h, read_id=r) for h in hlist]
         return out

@@ -314,10 +314,12 @@ def pairhmm_pack_native(
     return arrs, rs_out, hap_ext, y0, lens, hlens
 
 
-def smem_collect_host(fm, reads, params=None, max_out: int = 4096):
-    """Native host 3-pass SMEM collection, bit-identical to
-    ops.smem.reference.mem_collect_intv_oracle; returns [[interval
-    dicts]] or None if the lib is unavailable."""
+def smem_collect_host_arrays(fm, reads, params=None, max_out: int = 4096):
+    """Native host 3-pass SMEM collection as arrays: (out_mem (B, max_out,
+    5) int64 [x0 x1 s start end], each read's first ``out_n[k]`` rows in
+    the order of ops.smem.reference.mem_collect_intv_oracle; out_n (B,)
+    int32, past ``max_out`` for a read whose intervals the buffer cannot
+    hold), or None if the lib is unavailable."""
     lib = get_lib()
     if lib is None:
         return None
@@ -338,6 +340,7 @@ def smem_collect_host(fm, reads, params=None, max_out: int = 4096):
         fm._native_probe_tbl = tbl
     b = len(reads)
     flat, offs, lens = cat_u8(reads)
+    # zero pages until written: a read touches only its own rows
     out_mem = np.zeros((b, max_out, 5), np.int64)
     out_n = np.zeros(b, np.int32)
     lib.smem_collect_batch_native(
@@ -348,20 +351,28 @@ def smem_collect_host(fm, reads, params=None, max_out: int = 4096):
         int(params.split_width), int(params.max_mem_intv),
         max_out, out_mem.reshape(-1), out_n,
     )
+    return out_mem, out_n
+
+
+def smem_collect_host(fm, reads, params=None, max_out: int = 4096):
+    """Native host 3-pass SMEM collection, bit-identical to
+    ops.smem.reference.mem_collect_intv_oracle; returns [[interval
+    dicts]] (None for a read past ``max_out`` intervals) or None if the
+    lib is unavailable."""
+    got = smem_collect_host_arrays(fm, reads, params, max_out)
+    if got is None:
+        return None
+    out_mem, out_n = got
     res = []
-    for k in range(b):
+    for k in range(len(reads)):
         n = int(out_n[k])
         if n > max_out:  # pathological read; caller falls back to oracle
             res.append(None)
             continue
         res.append(
             [
-                dict(
-                    x0=int(out_mem[k, j, 0]), x1=int(out_mem[k, j, 1]),
-                    s=int(out_mem[k, j, 2]), start=int(out_mem[k, j, 3]),
-                    end=int(out_mem[k, j, 4]),
-                )
-                for j in range(n)
+                dict(x0=x0, x1=x1, s=s, start=start, end=end)
+                for x0, x1, s, start, end in out_mem[k, :n].tolist()
             ]
         )
     return res

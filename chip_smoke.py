@@ -1155,12 +1155,16 @@ def pipeline_phase(card: str, engines, fm, genome, bwa_reads, seeding_hits,
                        engines.extend)
     tpipe = BwaMemDevicePipeline(tight, max_occ=4, flank=100)
     _, _, _, host_idx = tpipe.map_reads_arrays(edge)
+    rerun = tpipe.anatomy["rerun_reads"]
     got = tpipe.map_reads(edge)
-    check(got == BwaMemSeeding(tight, max_occ=4, flank=100).map_reads(edge)
-          and len(host_idx) > 1, "pipeline with SMEM caps 6/4 vs BwaMemSeeding")
+    # only the read past seq_length is handed back; the capped reads rerun
+    # natively and take the card's extension
+    check(host_idx == [2] and rerun > 1, f"caps 6/4: host_idx {host_idx}, {rerun} reruns")
+    check(got == BwaMemSeeding(tight, max_occ=4, flank=100).map_reads(edge),
+          "pipeline with SMEM caps 6/4 vs BwaMemSeeding")
     say(f"pipeline edges: reads at both text ends with flank 300, a 300 bp read, an "
-        f"all-N read: == BwaMemSeeding; caps 6/4 send {len(host_idx)} of {len(edge)} "
-        f"reads to the host route, == BwaMemSeeding")
+        f"all-N read: == BwaMemSeeding; caps 6/4 rerun {rerun} of {len(edge)} reads "
+        f"natively and hand back only the 300 bp read, == BwaMemSeeding")
     del tpipe, tight, pipe
     return {"name": "sw_extend_fused", "route": "cuda", "source": EXTEND_SOURCE,
             "replaces": FUSED_TPU, "launches": launches.get("sw_extend_fused", 0),

@@ -45,8 +45,8 @@ TREES = {
            | {("hc.realign", k) for k in ("sw.group", "sw.pack", "sw.launch", "sw.fetch",
                                            "sw.decode", "sw.host_join")},
            {"pairhmm.host_forward", "sw.host_align"}),
-    "pipe": ({(None, "bwa.pipe.smem"), (None, "bwa.pipe.enum"), (None, "bwa.pipe.extend"),
-              ("bwa.pipe.extend", "bwa.pipe.fetch")}
+    "pipe": ({(None, "bwa.pipe.smem"), (None, "bwa.pipe.rerun"), (None, "bwa.pipe.enum"),
+              (None, "bwa.pipe.extend"), ("bwa.pipe.extend", "bwa.pipe.fetch")}
              | {("bwa.pipe.smem", k) for k in _SMEM},
              set()),
     "host": ({(None, "bwa.host")}
@@ -100,8 +100,9 @@ def _hc_entry(rng):
 
 
 def _bwa_entries(rng):
-    """Reads that overflow the SMEM caps (the host rerun) and seeds past
-    the extension's query cap (its host route)."""
+    """Reads that overflow the SMEM caps (the pipeline's native rerun, the
+    host route's rerun) and seeds past the extension's query cap (its host
+    route)."""
     genome = gen_reference_with_repeats(rng, 8000, repeat_len=60, n_repeats=6)
     reads = gen_smem_reads(rng, genome, 12, read_len=75)
     cfg = EngineConfig(smem=SmemConfig(curr_cap=8, mem_cap=8),
@@ -158,6 +159,7 @@ def test_span_count_does_not_grow_with_the_batch(observed, entry):
     ("hc", "host_s", "hc.prepare"), ("hc", "sw_s", "hc.realign"),
     ("hc", "pairhmm_s", "hc.likelihoods"), ("pipe", "smem_s", "bwa.pipe.smem"),
     ("pipe", "enum_s", "bwa.pipe.enum"), ("pipe", "extend_s", "bwa.pipe.extend"),
+    ("pipe", "rerun_s", "bwa.pipe.rerun"),
 ])
 def test_anatomy_is_the_span_reading(observed, entry, key, span):
     got = observed[entry]

@@ -186,9 +186,10 @@ class DispatchCostModel:
 
 @dataclasses.dataclass
 class _Bucket:
-    """One launch: ``planes`` stack to the (5*rows + rows + cols, bp) byte
-    region q, i, d, c, rs, hap_ext; lane k holds pair ``sel[k]`` (lanes
-    past ``len(sel)`` are padding).  ``sp_chunk_rows`` > 0 runs it on the
+    """One launch: the (5*rows + rows + cols, bp) byte region q, i, d, c,
+    rs, hap_ext, which ``planes`` stack to (empty when the launch packs
+    the region in place); lane k holds pair ``sel[k]`` (lanes past
+    ``len(sel)`` are padding).  ``sp_chunk_rows`` > 0 runs it on the
     mesh's DP x SP band pipeline at that C, else on the forward kernel."""
 
     sel: np.ndarray
@@ -196,7 +197,12 @@ class _Bucket:
     lens: np.ndarray  # (bp,) int32
     hlens: np.ndarray  # (bp,) int32
     rows: int
+    cols: int
     sp_chunk_rows: int = 0
+
+    @property
+    def nrow(self) -> int:
+        return 6 * self.rows + self.cols
 
 
 @dataclasses.dataclass
@@ -294,14 +300,18 @@ class PairHMMEngine:
 
     # -- device route -----------------------------------------------------
 
-    def _stage_and_run(self, sels, nbytes: int, fill, run) -> _Pending:
+    def _stage_and_run(self, sels, nbytes: int, fill, run, pack=None) -> _Pending:
         """One host buffer of ``nbytes`` (pinned on CUDA) filled by
-        ``fill(view)``, one H2D copy of it, ``run(device_buffer)`` launching
-        one result tensor a bucket on the engine's stream, and one D2H copy
-        of all results, which the returned _Pending waits for."""
+        ``fill(view)`` and then ``pack(view)``, one H2D copy of it,
+        ``run(device_buffer)`` launching one result tensor a bucket on the
+        engine's stream, and one D2H copy of all results, which the
+        returned _Pending waits for."""
         with Timer("pairhmm.stage"):
             staged = torch.empty(nbytes, dtype=torch.uint8, pin_memory=self._cuda)
             fill(staged.numpy())
+        if pack is not None:
+            with Timer("pairhmm.pack"):
+                pack(staged.numpy())
         with Timer("pairhmm.launch"), self._on_stream():
             dev = staged.to(self.device, non_blocking=True)
             allres = torch.cat(run(dev))
@@ -317,15 +327,18 @@ class PairHMMEngine:
                 out_host = allres
         return _Pending(list(sels), out_host, done, staged, nbytes)
 
-    def _launch(self, buckets: Sequence[_Bucket]) -> _Pending:
+    def _launch(self, buckets: Sequence[_Bucket], pack=None) -> _Pending:
         """Stage every bucket's byte planes in one host buffer, upload it
         once, launch one kernel (or one band pipeline) per bucket and
-        start one D2H copy of all results."""
+        start one D2H copy of all results.  ``pack(bucket, region)``, where
+        given, writes a bucket's planes straight into its (nrow, bp) region
+        of the staged buffer; else the buckets' ``planes`` are copied
+        there."""
         with Timer("pairhmm.launch"):
             u8_offs, off = [], 0
             for b in buckets:
                 u8_offs.append(off)
-                off += sum(p.shape[0] for p in b.planes) * len(b.lens)
+                off += b.nrow * len(b.lens)
             off = -(-off // 16) * 16  # int32 side-band aligned
             meta_offs = []
             for b in buckets:
@@ -342,6 +355,11 @@ class PairHMMEngine:
                 meta[: len(b.lens)] = b.lens
                 meta[len(b.lens) :] = b.hlens
 
+        def pack_all(hv):
+            for b, uo in zip(buckets, u8_offs):
+                bp = len(b.lens)
+                pack(b, hv[uo : uo + b.nrow * bp].reshape(b.nrow, bp))
+
         expand = self.config.quals_expand
         ic = float(self.ctx32.initial_constant)
 
@@ -349,8 +367,7 @@ class PairHMMEngine:
             outs = []
             for b, uo, mo in zip(buckets, u8_offs, meta_offs):
                 rows, bp = b.rows, len(b.lens)
-                nrow = sum(p.shape[0] for p in b.planes)
-                region = dev[uo : uo + nrow * bp].view(nrow, bp)
+                region = dev[uo : uo + b.nrow * bp].view(b.nrow, bp)
                 q, i, d, c, rs = (region[k * rows : (k + 1) * rows] for k in range(5))
                 hap_ext = region[5 * rows :]
                 meta = dev[mo : mo + 8 * bp].view(torch.int32).view(2, bp)
@@ -368,7 +385,8 @@ class PairHMMEngine:
                 outs.append(res[: len(b.sel)])
             return outs
 
-        return self._stage_and_run([b.sel for b in buckets], off, fill, run)
+        return self._stage_and_run([b.sel for b in buckets], off, fill, run,
+                                   None if pack is None else pack_all)
 
     def _launch_f32(self, streams, groups) -> _Pending:
         """The f32 upload: each bucket's native fp32 coefficient pack
@@ -521,7 +539,7 @@ class PairHMMEngine:
                         _Bucket(
                             sel,
                             [pack.q, pack.i, pack.d, pack.c, pack.rs, pack.hap_ext],
-                            pack.rslen, pack.haplen, rows,
+                            pack.rslen, pack.haplen, rows, cols,
                         )
                     )
         if buckets:
@@ -542,14 +560,15 @@ class PairHMMEngine:
                     C = self.stats["sp_chunk_rows"] = sp_chunk_rows(rows)
                     step = self._seq_size * 128
                     max_hl = max(len(testcases[k]["hap"]) for k in sp_idx)
+                    cols = -(-max_hl // step) * step
                     pack = pack_pairhmm_quals(
-                        [testcases[k] for k in sp_idx], rows=rows,
-                        cols=-(-max_hl // step) * step, lane_multiple=self._data_size,
+                        [testcases[k] for k in sp_idx], rows=rows, cols=cols,
+                        lane_multiple=self._data_size,
                     )
                 sp_pending = self._launch([_Bucket(
                     np.asarray(sp_idx, np.int64),
                     [pack.q, pack.i, pack.d, pack.c, pack.rs, pack.hap_ext],
-                    pack.rslen, pack.haplen, rows, C,
+                    pack.rslen, pack.haplen, rows, cols, C,
                 )])
                 self.stats["h2d_bytes"] = self.stats.get("h2d_bytes", 0) + sp_pending.h2d_bytes
             with Timer("pairhmm.pack_py"):
@@ -707,19 +726,19 @@ class PairHMMEngine:
         if groups and self.config.upload == "f32":
             pending = self._launch_f32(streams, groups)
         elif groups:
-            buckets = []
-            with Timer("pairhmm.pack"):
-                for sel, rows, cols in groups:
-                    g_lens = np.ascontiguousarray(lens[sel])
-                    g_hlens = np.ascontiguousarray(hlens[sel])
-                    packed = native.pairhmm_pack_quals_flat(
-                        rs, q, i, d, c, np.ascontiguousarray(offs[sel]), g_lens,
-                        hap, np.ascontiguousarray(hoffs[sel]), g_hlens,
-                        rows, cols, HAP_PAD,
-                    )
-                    big = packed[0].base  # the one (6*rows + cols, bp) buffer
-                    buckets.append(_Bucket(sel, [big], g_lens, g_hlens, rows))
-            pending = self._launch(buckets)
+            # each bucket packed straight into its region of the staged
+            # buffer: no buffer of its own, no copy into the stage
+            def pack(b, region):
+                native.pairhmm_pack_quals_flat(
+                    rs, q, i, d, c, np.ascontiguousarray(offs[b.sel]), b.lens,
+                    hap, np.ascontiguousarray(hoffs[b.sel]), b.hlens,
+                    b.rows, b.cols, HAP_PAD, out=region,
+                )
+
+            pending = self._launch([
+                _Bucket(sel, [], np.ascontiguousarray(lens[sel]),
+                        np.ascontiguousarray(hlens[sel]), rows, cols)
+                for sel, rows, cols in groups], pack)
         if pending is not None:
             self.stats["h2d_bytes"] = (
                 self.stats.get("h2d_bytes", 0) + pending.h2d_bytes

@@ -18,11 +18,16 @@ from typing import List, Sequence
 
 import numpy as np
 
+from acc_genomics_tpu_torch.config import PairHMMConfig
 from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
 from acc_genomics_tpu_torch.engine.sw_engine import SWEngine
 from acc_genomics_tpu_torch.native import cat_u8
 from acc_genomics_tpu_torch.ops.sw.reference import OVERHANG_SOFTCLIP
 from acc_genomics_tpu_torch.utils.timer import Timer
+
+# the longest read the default read buckets take; longer reads need
+# configured buckets (long-read data) or go to the native host forward
+LONG_READ = PairHMMConfig().max_read_len
 
 
 @dataclasses.dataclass
@@ -45,12 +50,14 @@ class HaplotypeCallerCore:
         self.engine = engine
         self.overhang_strategy = overhang_strategy
         # phase split, the readings of the spans hc.realign (sw),
-        # hc.likelihoods (pairhmm) and hc.prepare (host)
-        self.anatomy = dict(sw_s=0.0, pairhmm_s=0.0, host_s=0.0)
+        # hc.likelihoods (pairhmm) and hc.prepare (host); where the pairs
+        # were scored: long_pairs, reads past LONG_READ on the device
+        # route, and host_pairs, pairs on the native host forward
+        self.anatomy = dict(sw_s=0.0, pairhmm_s=0.0, host_s=0.0, long_pairs=0, host_pairs=0)
 
     def reset_anatomy(self):
         for k in self.anatomy:
-            self.anatomy[k] = 0.0
+            self.anatomy[k] = 0
 
     def process_region(
         self,
@@ -99,9 +106,15 @@ class HaplotypeCallerCore:
                     np.concatenate(parts) if parts else np.zeros(0, dtype))
                 pair_lens, pair_hlens = flat(p_lens, np.int32), flat(p_hlens, np.int32)
                 pair_offs, pair_hoffs = flat(p_offs, np.int64), flat(p_hoffs, np.int64)
-            liks_flat = self.engine.pairhmm.compute_pairs_flat(
+            pairhmm = self.engine.pairhmm
+            host0 = pairhmm.stats.get("host_fallback", 0)
+            liks_flat = pairhmm.compute_pairs_flat(
                 rs, q, i, d, c, pair_lens, hapc, pair_hlens,
                 offs=pair_offs, hoffs=pair_hoffs)
+        cfg = pairhmm.config
+        on_device = (pair_lens <= cfg.max_read_len) & (pair_hlens <= cfg.max_hap_len)
+        self.anatomy["long_pairs"] += int(np.count_nonzero(on_device & (pair_lens > LONG_READ)))
+        self.anatomy["host_pairs"] += pairhmm.stats.get("host_fallback", 0) - host0
         self.anatomy["host_s"] += prepare.elapsed
         self.anatomy["sw_s"] += realign.elapsed
         self.anatomy["pairhmm_s"] += likelihoods.elapsed

@@ -78,7 +78,7 @@ namespace {
 
 using namespace pairhmm;
 
-constexpr int kMaxRows = 256;
+constexpr int kMaxRows = 1024;  // a read as long as the longest haplotype
 constexpr int kMaxCols = 1024;
 constexpr int kThreads = 128;
 constexpr int kTile = 8;  // steps between a segment's checks

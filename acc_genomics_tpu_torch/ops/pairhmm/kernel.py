@@ -30,7 +30,7 @@ from acc_genomics_tpu_torch.device import check_tensor, same_device
 from acc_genomics_tpu_torch.utils.convert import BASE_N, HAP_PAD
 
 PAD_MASK = 16  # one-hot channel of padded hap columns (never matches)
-MAX_ROWS = 256  # eight chunks of 32 rows a pair
+MAX_ROWS = 1024  # up to 32 chunks of 32 rows a pair, as many as MAX_COLS
 MAX_COLS = 1024  # a pair's hap columns in shared memory
 
 # kernel launches per wrapper (CUDA tensors only); callers reset with clear()

@@ -558,9 +558,11 @@ def pairhmm_edge_packs(dev):
     """The PairHMM kernel's edges (chip_smoke.py phase 3), as (label,
     coefficient pack, byte-plane pack) on ``dev``: 256 derived pairs a
     bucket of 1, 8, 9 (C = 8 and 16), 31, 32, 33, 34 (one and two chunks of
-    32) and 255 rows, every haplotype exactly the bucket's columns, 1 and
-    1024 among them.  Reads fill the rows but the absorbing one (a
-    byte-plane pack needs it); the coefficient pack runs every row.  A
+    32), 255, 257, 288 (nine chunks), 512, 576 (long reads, 16 and 18
+    chunks) and 1024 rows (32 chunks, the row cap), every haplotype
+    exactly the bucket's columns, 1 and 1024 among them.  Reads fill the
+    rows but the absorbing one (a byte-plane pack needs it); the
+    coefficient pack runs every row.  A
     one-row bucket holds no read: every lane is inert.  Then packs without
     lane padding whose last warp is only partly filled: 1, 5 and 13 pairs
     at rows 8 and 16 (C = 8 and 16: four and two segments a warp) and 3
@@ -573,7 +575,8 @@ def pairhmm_edge_packs(dev):
     rng = np.random.default_rng(4)
     out = []
     for rows, cols in ((1, 64), (8, 64), (9, 64), (31, 96), (32, 96), (33, 96), (34, 96),
-                       (255, 400), (40, 1), (151, 1024)):
+                       (255, 400), (40, 1), (151, 1024), (257, 400), (288, 512),
+                       (512, 600), (576, 640), (1024, 1024)):
         reads, haps = gen_pairhmm_input(rng, 64, 4, max_read_len=max(rows - 1, 1),
                                         max_hap_len=max(cols, 64), derived=True)
         haps = [np.concatenate([h, rng.integers(0, 4, cols)])[:cols].astype(np.uint8)

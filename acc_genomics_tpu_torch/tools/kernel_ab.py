@@ -39,10 +39,10 @@ Every mode but ``band_superstep`` calls both builds through their C entry
 points with the same prepared arguments, so no wrapper's host work is
 timed on one side only (``band_superstep`` runs both through the
 wrapper).  Each pair runs old, new, new, old (CUDA events, median of 7
-each); the outputs must agree (PairHMM within rtol 1e-5, every other
-kernel bit for bit).  Registers and spills of both builds (ptxas) are
-printed.  The last line of standard output is one JSON object with every
-time.
+each); the outputs must agree bit for bit (and PairHMM's wrapper within
+rtol 1e-5 of the old build).  Registers and spills of both builds
+(ptxas) are printed.  The last line of standard output is one JSON
+object with every time.
 """
 
 from __future__ import annotations
@@ -387,11 +387,16 @@ def pairhmm_ab(old_dir: str, dev) -> dict:
             return go
 
         with_lib(fn)()
+        old_res = [res.clone() for _, _, _, res in prepared]
+        with_lib(new_fn)()
         # the wrapper's result against the old library's
         got = [K.pairhmm_forward_from_quals(*args, **kw) for args, kw, _, _ in prepared]
         torch.cuda.synchronize()
-        for g, (_, _, _, res) in zip(got, prepared):
-            torch.testing.assert_close(g, res, rtol=1e-5, atol=tiny)
+        for o, (_, _, _, res) in zip(old_res, prepared):
+            if not torch.equal(o.view(torch.int32), res.view(torch.int32)):
+                raise AssertionError(f"pairhmm, {name}: old and new builds differ")
+        for g, o in zip(got, old_res):
+            torch.testing.assert_close(g, o, rtol=1e-5, atol=tiny)
         shapes = sorted({(tuple(v["rs"].shape), v["hap_ext"].shape[0] - v["rs"].shape[0])
                          for _, _, v, _ in prepared})
         out[name] = {"launches": len(prepared), "shapes": shapes,

@@ -5,7 +5,7 @@
 Builds the port's CUDA kernels from the sources in this checkout, all at
 once.  PairHMM: checks the forward kernel against its plain PyTorch
 version at the benchmark shapes, on the edges of its segment design
-(buckets of 1 to 255 rows, haplotypes of 1 and 1024 columns, unpadded
+(buckets of 1 to 1024 rows, haplotypes of 1 and 1024 columns, unpadded
 packs whose last warp is partly filled, all three front ends) and at the
 shapes the engine launches,
 drives the PairHMM engine's main path (compute_matrix_flat,

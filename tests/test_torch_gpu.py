@@ -119,9 +119,9 @@ def test_cuda_kernel_rejects_bad_arguments(cuda):
         K.pairhmm_forward(*planes, rs.to(torch.int64), hap, y0)
     with pytest.raises(ValueError, match="contiguous"):
         K.pairhmm_forward(*planes[:7], planes[7].t().contiguous().t(), rs, hap, y0)
-    big = torch.zeros((264, 4), device=cuda)
+    big = torch.zeros((1032, 4), device=cuda)
     with pytest.raises(ValueError, match="rows"):
-        K.pairhmm_forward(*[big] * 8, big.int(), torch.zeros((300, 4), dtype=torch.int32,
+        K.pairhmm_forward(*[big] * 8, big.int(), torch.zeros((1068, 4), dtype=torch.int32,
                                                              device=cuda), y0)
     assert torch.all(K.pairhmm_forward(*planes, rs, hap, y0) == 0)
 
@@ -646,9 +646,10 @@ def test_cuda_extend_kernel_warp_edges(cuda):
 @pytest.mark.parametrize("front", ["coef", "arith", "gather"])
 def test_cuda_pairhmm_kernel_segment_edges(cuda, front):
     """The segment kernel at C = 8, 16 and 32, one and two chunks, 255
-    rows and haplotypes of 1 and 1024 columns, and unpadded packs of 1, 5,
-    13 and 3 pairs whose last warp is partly filled: within rtol 1e-5 of
-    the plain version, inert lanes exactly 0."""
+    rows, 257 to 1024 rows (9 to 32 chunks) and haplotypes of 1 and 1024
+    columns, and unpadded packs of 1, 5, 13 and 3 pairs whose last warp is
+    partly filled: within rtol 1e-5 of the plain version, inert lanes
+    exactly 0."""
     from acc_genomics_tpu_torch.tools.bench_shapes import pairhmm_edge_packs
 
     ctx = PairHMMContext(np.float32)

@@ -16,6 +16,10 @@ device route:
   output past its cap) rerun on the native host engine, on a worker
   thread concurrent with the device work (the flagged ones as soon as the
   counts arrive);
+* ``retry_arrays`` gives reads the kernel flagged a second launch at caps
+  taken from their batch (chains as long as the widest read, the output
+  at ``max_intv_alloc``), and only what that launch still flags takes the
+  native host engine;
 * with a ``mesh``, the probe table goes to each of its distinct devices
   once and each batch's reads run data-parallel over its "data" axis
   (``parallel/sharded_kernels.smem_collect_dp``), on the same kernel.
@@ -37,7 +41,7 @@ import torch
 from acc_genomics_tpu_torch.build import ensure_native
 from acc_genomics_tpu_torch.device import resolve_device
 from acc_genomics_tpu_torch.engine.packing import pack_tm
-from acc_genomics_tpu_torch.ops.smem.kernel import smem_collect
+from acc_genomics_tpu_torch.ops.smem.kernel import chain_room, smem_collect
 from acc_genomics_tpu_torch.ops.smem.table import DeviceIndex
 from acc_genomics_tpu_torch import native
 from acc_genomics_tpu_torch.config import SmemConfig
@@ -51,6 +55,19 @@ def _iv_array(ivs: List[dict]) -> np.ndarray:
     """Interval dicts -> (k, 5) int64 [x0, x1, s, start, end]."""
     return np.array([[iv["x0"], iv["x1"], iv["s"], iv["start"], iv["end"]] for iv in ivs],
                     np.int64).reshape(-1, 5)
+
+
+def merge_intervals(flat, counts, idx, sub_flat, sub_counts):
+    """Read-major intervals with those of reads ``idx`` (none of them in
+    ``flat``) taken from ``sub_flat``, read-major over ``idx``, and
+    ``sub_counts``."""
+    src = np.cumsum(counts) - counts  # each read's first row in the sources
+    src[idx] = len(flat) + np.cumsum(sub_counts) - sub_counts
+    counts = counts.copy()
+    counts[idx] = sub_counts
+    rows = np.repeat(src - (np.cumsum(counts) - counts), counts)
+    rows += np.arange(len(rows))
+    return np.concatenate([flat, sub_flat])[rows], counts
 
 
 def split_dicts(flat: np.ndarray, counts: np.ndarray) -> List[List[dict]]:
@@ -86,8 +103,9 @@ class SmemEngine:
                 self.index = DeviceIndex.build(fm, self.device)
         self.params = config.params()
         # probe_iters: FM-index extensions taken on the card (two occ
-        # probes each), summed over reads
-        self.stats = {"reads": 0, "overflow_reruns": 0, "probe_iters": 0}
+        # probes each), summed over reads; retry_host: reads that
+        # retry_arrays handed to the native host engine
+        self.stats = {"reads": 0, "overflow_reruns": 0, "probe_iters": 0, "retry_host": 0}
         # the bytes each call moves over the link
         self.anatomy = dict(h2d_bytes=0, d2h_bytes=0)
 
@@ -112,24 +130,27 @@ class SmemEngine:
         hv[4 * n:].reshape(L, n)[:] = seq_tm
         return staged
 
-    def _launch(self, staged: torch.Tensor, L: int, n: int):
+    def _launch(self, staged: torch.Tensor, L: int, n: int, params):
         """Upload one staged batch and launch the kernel; nothing is
         fetched."""
         dev = staged.to(self.device, non_blocking=True)
         self.anatomy["h2d_bytes"] += staged.numel()
         seq, lens = dev[4 * n:].view(L, n), dev[: 4 * n].view(torch.int32)
         if self.mesh is not None:
-            return smem_collect_dp(self.mesh, self.indexes, seq, lens, self.params)
-        return smem_collect(self.index, seq, lens, self.params)
+            return smem_collect_dp(self.mesh, self.indexes, seq, lens, params)
+        return smem_collect(self.index, seq, lens, params)
 
-    def _run(self, batches: Sequence[Tuple[np.ndarray, np.ndarray]]):
-        """Stage and launch every (seq_tm, lens) batch, then fetch: (flat
-        (tot, 5) int32 intervals read-major over all batches, counts (N,),
-        flags (N,) bool), reads in batch order.  Flagged reads count 0."""
+    def _run(self, batches: Sequence[Tuple[np.ndarray, np.ndarray]], params=None):
+        """Stage and launch every (seq_tm, lens) batch at ``params`` (the
+        engine's by default), then fetch: (flat (tot, 5) int32 intervals
+        read-major over all batches, counts (N,), flags (N,) bool), reads
+        in batch order.  Flagged reads count 0."""
+        params = self.params if params is None else params
         with Timer("smem.pack"):
             staged = [self._stage(seq, lens) for seq, lens in batches]
         with Timer("smem.launch"):
-            launched = [self._launch(st, *seq.shape) for st, (seq, _) in zip(staged, batches)]
+            launched = [self._launch(st, *seq.shape, params)
+                        for st, (seq, _) in zip(staged, batches)]
         if not launched:
             return np.zeros((0, 5), np.int32), np.zeros(0, np.int64), np.zeros(0, bool)
         # the counts' D2H copy waits for the kernels
@@ -174,6 +195,39 @@ class SmemEngine:
         rows = np.repeat(np.arange(len(counts)) * cap - (np.cumsum(counts) - counts), counts)
         rows += np.arange(len(rows))
         return out_mem.reshape(-1, 5)[rows], counts
+
+    def retry_arrays(self, reads: Sequence[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+        """``host_arrays``' intervals of ``reads``, for reads the kernel
+        flagged at the configured caps: one more launch, at the width of
+        the longest read rounded up to 16 with chains of that width + 1
+        rows (no chain of a read outgrows it; at most ``chain_room``) and
+        ``max_intv_alloc`` output rows.  Reads past ``seq_length``, and
+        those the wide launch still flags, take ``host_arrays`` (counted
+        in ``stats["retry_host"]``)."""
+        n = len(reads)
+        lens = np.fromiter((len(r) for r in reads), np.int64, n)
+        counts = np.zeros(n, np.int64)
+        flat = np.zeros((0, 5), np.int64)
+        card = np.flatnonzero(lens <= self.config.seq_length)
+        left = np.flatnonzero(lens > self.config.seq_length)
+        if len(card):
+            width = -(-max(int(lens[card].max()), 1) // 16) * 16
+            params = self.params._replace(curr_cap=min(width + 1, chain_room(width)),
+                                          mem_cap=self.params.max_intv_alloc)
+            seg = max(int(self.config.batch_size), 1)
+            seq_tm, rlens = pack_tm([reads[k] for k in card], width, len(card))
+            got, live, flags = self._run(
+                [(seq_tm[:, lo:lo + seg], rlens[lo:lo + seg])
+                 for lo in range(0, len(card), seg)], params)
+            counts[card] = live
+            flat = got.astype(np.int64)
+            left = np.union1d(left, card[flags])
+        if len(left):
+            self.stats["retry_host"] += len(left)
+            with Timer("smem.retry_host"):
+                hflat, hcounts = self.host_arrays([reads[k] for k in left])
+            flat, counts = merge_intervals(flat, counts, left, hflat, hcounts)
+        return flat, counts
 
     def collect(self, reads: Sequence[np.ndarray]) -> List[List[dict]]:
         """3-pass SMEM intervals of each read, as interval dicts."""
@@ -244,7 +298,7 @@ class SmemEngine:
         codes, lens (B,).  Returns (mem (5, used, B) int32 [x0, x1, s,
         start, end], mem_n (B,), overflow (B,) bool), used the largest
         count.  Flagged reads (``overflow``) carry no intervals here;
-        callers rerun them on the host (``host_arrays``)."""
+        callers rerun them (``retry_arrays`` or ``host_arrays``)."""
         seq_tm = np.asarray(seq_tm, np.uint8)
         lens = np.asarray(lens, np.int32)
         bsz = seq_tm.shape[1]

@@ -8,9 +8,9 @@ span of the read's length plus ``flank`` on both sides, then left and
 right extension of every seed in one call (``ExtendEngine.extend_seeds``).
 ``BwaMemDevicePipeline`` gives the same results with the suffix array and
 the text resident on the card: intervals as arrays
-(``SmemEngine.collect_arrays``, and the native host engine for the reads
-whose chain or output overflows the kernel's caps), a vectorised seed
-enumeration, and one launch of the fused extension step per call.
+(``SmemEngine.collect_arrays``, and ``SmemEngine.retry_arrays`` for the
+reads whose chain or output overflows the kernel's caps), a vectorised
+seed enumeration, and one launch of the fused extension step per call.
 Chaining and pairing stay with the caller.
 """
 
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from acc_genomics_tpu_torch.engine.packing import pack_rows
+from acc_genomics_tpu_torch.engine.smem_engine import merge_intervals
 from acc_genomics_tpu_torch.ops.extend.kernel import FUSED_KEYS, extend_seeds_fused
 from acc_genomics_tpu_torch.utils.timer import Timer
 
@@ -106,19 +107,6 @@ def _flat_intervals(mem, mem_n):
     return mem.transpose(2, 1, 0)[valid], counts
 
 
-def _merge_intervals(flat, counts, idx, sub_flat, sub_counts):
-    """Read-major intervals with those of reads ``idx`` (none of them in
-    ``flat``) taken from ``sub_flat``, read-major over ``idx``, and
-    ``sub_counts``."""
-    src = np.cumsum(counts) - counts  # each read's first row in the sources
-    src[idx] = len(flat) + np.cumsum(sub_counts) - sub_counts
-    counts = counts.copy()
-    counts[idx] = sub_counts
-    rows = np.repeat(src - (np.cumsum(counts) - counts), counts)
-    rows += np.arange(len(rows))
-    return np.concatenate([flat, sub_flat])[rows], counts
-
-
 def _no_seeds(host_idx):
     empty = np.zeros(0, np.int32)
     return (np.zeros((len(FUSED_KEYS), 0), np.int32), empty, (empty,) * 3, host_idx)
@@ -130,11 +118,12 @@ class BwaMemDevicePipeline:
     The same results as :class:`BwaMemSeeding` (same seed enumeration, the
     same extension semantics), with the suffix array (int32) and the text
     (uint8, both strands) put on the engine's device once, here.  A call
-    costs the SMEM round trips of ``collect_arrays``, the native host SMEM
-    of the reads it flags (``SmemEngine.host_arrays``, on the calling
-    thread), one H2D copy of every read's seeds and the reads, one launch
-    of ``extend_seeds_fused`` and one D2H copy of its (8, N) result.  Only
-    reads longer than the call's bucket take ``BwaMemSeeding``.
+    costs the SMEM round trips of ``collect_arrays``, a second SMEM launch
+    at wide caps for the reads it flags (``SmemEngine.retry_arrays``; the
+    native host engine for any that launch flags too), one H2D copy of
+    every read's seeds and the reads, one launch of ``extend_seeds_fused``
+    and one D2H copy of its (8, N) result.  Only reads longer than the
+    call's bucket take ``BwaMemSeeding``.
     ``engine``: anything with ``.smem`` (an ``SmemEngine`` with its index)
     and ``.extend`` (an ``ExtendEngine``), such as ``GenomicsEngine`` or
     ``BwaEngines``.
@@ -156,12 +145,13 @@ class BwaMemDevicePipeline:
         self.stats = {"reads": 0, "seeds": 0, "device_calls": 0}
         # per-phase anatomy, the readings of the spans bwa.pipe.smem
         # (collect_arrays, its launches and fetches), bwa.pipe.rerun (the
-        # native SMEM rerun of the reads the kernel flags), bwa.pipe.enum
-        # (the host seed enumeration and staging) and bwa.pipe.extend (the
-        # H2D copy, the launch and the result's D2H copy); rerun_reads
-        # counts the flagged reads rerun natively and extended on the card
+        # SMEM retry of the reads the kernel flags), bwa.pipe.enum (the
+        # host seed enumeration and staging) and bwa.pipe.extend (the H2D
+        # copy, the launch and the result's D2H copy); rerun_reads counts
+        # the flagged reads, rerun_host_reads those of them the retry's
+        # launch flags too (they take the native host engine)
         self.anatomy = dict(smem_s=0.0, rerun_s=0.0, enum_s=0.0, extend_s=0.0,
-                            h2d_bytes=0, d2h_bytes=0, rerun_reads=0)
+                            h2d_bytes=0, d2h_bytes=0, rerun_reads=0, rerun_host_reads=0)
 
     def reset_anatomy(self):
         for k in self.anatomy:
@@ -192,16 +182,19 @@ class BwaMemDevicePipeline:
             mem, mem_n, overflow = self.engine.smem.collect_arrays(
                 np.ascontiguousarray(rows_rm.T), rlens)
         self.anatomy["smem_s"] += smem.elapsed
-        # the flagged reads' intervals from the native host engine, merged
+        # the flagged reads' intervals from the retry at wide caps, merged
         # read-major with the card's
         flat, counts = _flat_intervals(mem, mem_n)
         rerun = np.flatnonzero(overflow)
         if len(rerun):
+            smem_eng = self.engine.smem
+            host_before = smem_eng.stats["retry_host"]
             with Timer("bwa.pipe.rerun") as rr:
-                rflat, rcounts = self.engine.smem.host_arrays([reads[k] for k in rerun])
+                rflat, rcounts = smem_eng.retry_arrays([reads[k] for k in rerun])
             self.anatomy["rerun_s"] += rr.elapsed
             self.anatomy["rerun_reads"] += len(rerun)
-            flat, counts = _merge_intervals(flat, counts, rerun, rflat, rcounts)
+            self.anatomy["rerun_host_reads"] += smem_eng.stats["retry_host"] - host_before
+            flat, counts = merge_intervals(flat, counts, rerun, rflat, rcounts)
 
         with Timer("bwa.pipe.enum") as enum:
             enumerated = self._enumerate(flat, counts, rows_rm, rlens)

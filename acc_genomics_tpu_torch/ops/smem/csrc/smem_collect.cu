@@ -26,9 +26,12 @@
 // Caps: the forward break intervals (`curr`) and the backward chain
 // (`back`) hold at most `chain_cap` rows (<= kChainMax); the output holds
 // mem_cap rows.  A read that would push past either cap stops there with
-// flag = 1 and is rerun on the host: never truncated.  Its count and rows
-// up to the stop are still written (the plain version stops at the same
-// push).
+// flag = 1 and is rerun: never truncated.  Its count and rows up to the
+// stop are still written (the plain version stops at the same push).
+// Neither chain of a read outgrows its length (a forward step pushes at
+// most one `curr` row, a backward step one `back` row), so a second
+// launch at chain_cap = L + 1 (up to kChainMax) finishes a flagged read
+// unless its output passes mem_cap.
 //
 // Design: a one-probe lockstep machine.  Each lane holds one read's
 // machine (the states of the plain version, ops/smem/kernel.py, and of
@@ -57,7 +60,12 @@
 
 namespace {
 
-constexpr int kChainMax = 32;
+// the largest chain cap whose chains and read fit a 32-lane block's
+// 227 KB of shared memory at L = 256: (7 * 4 * 250 + 256) * 32 bytes
+constexpr int kChainMax = 250;
+// the dynamic shared memory a block may take on sm_90 (BLOCK_SMEM of
+// ops/smem/kernel.py, whose caps() refuses what would not fit)
+constexpr size_t kBlockSmem = 227 * 1024;
 constexpr int kBlockMax = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -595,8 +603,11 @@ int smem_collect(const int32_t* tbl, int primary, int l2_0, int l2_1, int l2_2,
                  int split_width, int max_mem_intv, int chain_cap, int mem_cap,
                  int32_t* mem, int32_t* mem_n, int32_t* flag, int32_t* probes,
                  int32_t* next, void* stream) {
+  // per lane, 7 int32 chain rows a cap and the read's L bytes; a 32-lane
+  // block has to hold them
+  const size_t lane_bytes = (size_t)7 * chain_cap * sizeof(int) + L;
   if (L <= 0 || stride < L || stride % 16 || batch < 0 || chain_cap < 1 ||
-      chain_cap > kChainMax || mem_cap < 1)
+      chain_cap > kChainMax || mem_cap < 1 || lane_bytes * 32 > kBlockSmem)
     return (int)cudaErrorInvalidValue;
   if (batch == 0) return 0;
   Params p{{(const int4*)tbl, primary, {l2_0, l2_1, l2_2, l2_3, l2_4}},
@@ -607,9 +618,10 @@ int smem_collect(const int32_t* tbl, int primary, int l2_0, int l2_1, int l2_2,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   // persistent warps: as many blocks as the card holds at once, of 64
-  // lanes, or of 32 where the batch would not fill one block an SM
-  int threads = batch < 64 * sms ? 32 : kBlockMax;
-  const size_t smem = ((size_t)7 * chain_cap * sizeof(int) + L) * threads;
+  // lanes, or of 32 where the batch would not fill one block an SM or
+  // where 64 lanes' chains would not fit a block
+  int threads = batch < 64 * sms || lane_bytes * kBlockMax > kBlockSmem ? 32 : kBlockMax;
+  const size_t smem = lane_bytes * threads;
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(smem_collect_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,

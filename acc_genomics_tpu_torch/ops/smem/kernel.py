@@ -15,7 +15,8 @@ Counterpart of the JAX package's ``ops/smem/machine.py``
   flag (B,) int32             1 where a read pushed past ``chain_cap``
                               forward or backward break intervals or past
                               ``mem_cap`` intervals: it stopped at that
-                              push and must be rerun on the host
+                              push and must be rerun (at wider caps, or
+                              on the host)
   probes (B,) int32           FM-index extensions (two occ probes each)
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
@@ -36,7 +37,13 @@ from acc_genomics_tpu_torch.device import check_tensor, same_device
 from acc_genomics_tpu_torch.ops.smem.table import DeviceIndex
 from acc_genomics_tpu_torch.ops.smem.reference import DEFAULT_SMEM_PARAMS, SmemParams
 
-CHAIN_MAX = 32  # kChainMax of csrc/smem_collect.cu: the largest chain cap
+# kChainMax of csrc/smem_collect.cu: the largest chain cap, the one whose
+# chains and reads of 256 fit a 32-lane block's shared memory
+CHAIN_MAX = 250
+# kBlockSmem of csrc/smem_collect.cu, the dynamic shared memory a block
+# may take on sm_90: per lane, 7 int32 chain rows a cap and the read's L
+# bytes
+BLOCK_SMEM = 227 * 1024
 
 # kernel launches per wrapper (CUDA tensors only); callers reset with clear()
 LAUNCHES: collections.Counter = collections.Counter()
@@ -62,11 +69,22 @@ def build_kernels() -> Dict[str, build.BuiltLibrary]:
     return {"smem_collect": built}
 
 
-def caps(params: SmemParams) -> Tuple[int, int]:
-    """(chain_cap, mem_cap) of a launch: the parameters' curr_cap and
-    mem_cap, within the kernel's chain arrays and max_intv_alloc."""
-    return (max(1, min(params.curr_cap, CHAIN_MAX)),
-            max(1, min(params.mem_cap, params.max_intv_alloc)))
+def caps(params: SmemParams, L: int) -> Tuple[int, int]:
+    """(chain_cap, mem_cap) of a launch at read width L: the parameters'
+    curr_cap, at most ``chain_room(L)`` (past it raises: the chains would
+    not fit a block, and the entry point refuses them too), and mem_cap
+    within max_intv_alloc."""
+    room = chain_room(L)
+    if params.curr_cap > room:
+        raise ValueError(f"curr_cap {params.curr_cap} > {room}, the most a block holds "
+                         f"beside reads of {L} (CHAIN_MAX {CHAIN_MAX})")
+    return (max(1, params.curr_cap), max(1, min(params.mem_cap, params.max_intv_alloc)))
+
+
+def chain_room(L: int) -> int:
+    """The largest chain cap a 32-lane block holds beside reads of width
+    L: CHAIN_MAX up to L = 256, less past it (0 where no chain fits)."""
+    return max(0, min(CHAIN_MAX, (BLOCK_SMEM // 32 - L) // 28))
 
 
 # -- plain PyTorch version ---------------------------------------------------
@@ -130,9 +148,9 @@ def smem_collect_plain(index: DeviceIndex, seq, lens,
     and parks at that push, as the kernel's thread stops."""
     min_seed, split_len = params.min_seed_len, params.split_len
     split_width, max_mem_intv = params.split_width, params.max_mem_intv
-    chain_cap, mem_cap = caps(params)
-    dev = seq.device
     L, bsz = seq.shape
+    chain_cap, mem_cap = caps(params, L)
+    dev = seq.device
     i64 = torch.int64
     seq = seq.long()
     ln = lens.long().clamp(0, L)
@@ -167,7 +185,9 @@ def smem_collect_plain(index: DeviceIndex, seq, lens,
         got = seq.gather(0, pos.clamp(0, L - 1)[None])[0]
         return torch.where((pos >= 0) & (pos < ln), got, 4)
 
-    max_steps = 64 * L + 4096
+    # a guard against a machine that never ends: a trinucleotide repeat of
+    # 150 takes ~20k extensions at chain caps past its length
+    max_steps = (64 + 4 * chain_cap) * L + 4096
     step = 0
     while True:
         if step % 8 == 0 and not bool((s["st"] != S_DONE).any()):
@@ -440,7 +460,7 @@ def smem_collect(index: DeviceIndex, seq, lens,
     check_tensor(seq, "seq", torch.uint8, (L, bsz))
     check_tensor(lens, "lens", torch.int32, (bsz,))
     check_tensor(index.tbl, "tbl", torch.int32, (index.tbl.shape[0], 8))
-    chain_cap, mem_cap = caps(params)
+    chain_cap, mem_cap = caps(params, L)
     # one zeroed buffer: the intervals (rows past a read's count stay 0),
     # the counts, and the kernel's read queue
     n_mem = 5 * mem_cap * bsz

@@ -2,8 +2,9 @@
 ``chip_smoke.py``, ``tools/kernel_ab.py`` and the tests: the SW fill's
 edge batches, the extension kernel's batches and edges, the fused seed
 extension's edge batches, ExtendEngine's seeds, the PairHMM kernel's
-benchmark pairs, engine batches and edge packs, all made from numpy
-seeds, and a recorder of a wrapper's calls."""
+benchmark pairs, engine batches and edge packs, a genome and reads that
+overflow the SMEM caps, all made from numpy seeds, and a recorder of a
+wrapper's calls."""
 
 from __future__ import annotations
 
@@ -192,32 +193,68 @@ def sw_bench_chunks(dev):
     return ref, alts, chunks
 
 
-def bwa_index_and_reads():
+def smem_index_and_reads():
     """chip_smoke.py phases 12-14's genome (gen_reference_with_repeats of
-    SMEM_GENOME bases, seed 0), its FMIndex and the BWA_READS reads of 101
-    drawn after the SMEM_READS of phase 12: (genome, fm, bwa_reads).  The
-    index build takes about a minute (the native suffix array)."""
+    SMEM_GENOME bases, seed 0), its FMIndex, phase 12's SMEM_READS reads
+    of 101 and the BWA_READS reads of 101 drawn after them: (genome, fm,
+    smem_reads, bwa_reads).  The index build takes about a minute (the
+    native suffix array)."""
     from acc_genomics_tpu_torch.io.synth import gen_reference_with_repeats, gen_smem_reads
     from acc_genomics_tpu_torch.ops.smem.index import FMIndex
 
     rng = np.random.default_rng(0)
     genome = gen_reference_with_repeats(rng, SMEM_GENOME)
     fm = FMIndex.build(genome)
-    gen_smem_reads(rng, genome, SMEM_READS, read_len=101)
-    return genome, fm, gen_smem_reads(rng, genome, BWA_READS, read_len=101)
+    smem_reads = gen_smem_reads(rng, genome, SMEM_READS, read_len=101)
+    return genome, fm, smem_reads, gen_smem_reads(rng, genome, BWA_READS, read_len=101)
+
+
+def smem_repeat_genome(rng, length: int) -> np.ndarray:
+    """A genome whose reads overflow the SMEM kernel's default caps:
+    random bases, a 300-base family whose copies diverge by 2-20% over a
+    tenth of it (many SMEMs a read), and homopolymer runs and
+    microsatellites of units of 2-3 bases, 12-170 bases long, over a
+    fiftieth (forward and backward chains past 32 rows)."""
+    genome = rng.integers(0, 4, length).astype(np.uint8)
+    unit = rng.integers(0, 4, 300).astype(np.uint8)
+    for pos in rng.integers(0, length - 300, int(0.1 * length / 300)).tolist():
+        copy = unit.copy()
+        mut = rng.random(300) < rng.uniform(0.02, 0.2)
+        copy[mut] = (copy[mut] + rng.integers(1, 4, int(mut.sum()))) % 4
+        genome[pos:pos + 300] = copy if rng.random() < 0.5 else 3 - copy[::-1]
+    for pos in rng.integers(0, length - 170, int(0.02 * length / 90)).tolist():
+        n = int(rng.integers(12, 171))
+        motif = rng.integers(0, 4, int(rng.choice([1, 2, 3]))).astype(np.uint8)
+        genome[pos:pos + n] = np.resize(motif, n)
+    return genome
+
+
+def smem_retry_reads(rng, genome: np.ndarray, n: int, read_len: int = 150):
+    """``n`` reads of ``read_len`` drawn uniformly from ``genome`` with
+    0.2% errors and 0.1% N (the BWA cell's rates), then three whose
+    chains outgrow 32 rows on ``smem_repeat_genome``: a homopolymer, a
+    dinucleotide repeat and a homopolymer with one mismatch."""
+    from acc_genomics_tpu_torch.io.synth import gen_smem_reads
+
+    reads = gen_smem_reads(rng, genome, n, read_len=read_len, error_rate=0.002,
+                           ambig_rate=0.001)
+    poly = np.zeros(read_len, np.uint8)
+    kinked = poly.copy()
+    kinked[read_len // 2] = 3
+    return reads + [poly, np.resize(np.array([1, 0], np.uint8), read_len), kinked]
 
 
 def pipeline_fused_args(dev):
     """The arguments of the one ``extend_seeds_fused`` launch of a
     ``BwaMemDevicePipeline`` call (max_occ 4, flank 100) on
-    ``bwa_index_and_reads()``: chip_smoke.py phase 14's seeds."""
+    ``smem_index_and_reads()``' BWA reads: chip_smoke.py phase 14's seeds."""
     import acc_genomics_tpu_torch.models.bwa_mem as bwa_module
     from acc_genomics_tpu_torch.build import ensure_native
     from acc_genomics_tpu_torch.engine.genomics_engine import GenomicsEngine
     from acc_genomics_tpu_torch.models import BwaMemDevicePipeline
 
     ensure_native()
-    _, fm, reads = bwa_index_and_reads()
+    _, fm, _, reads = smem_index_and_reads()
     eng = GenomicsEngine(device=dev)
     eng.set_index(fm)
     calls = []

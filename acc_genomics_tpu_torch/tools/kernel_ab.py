@@ -4,7 +4,7 @@ in turns on one card at the same inputs.
     python -m acc_genomics_tpu_torch.tools.kernel_ab OLD_DIR [KERNEL ...]
 
 KERNEL is ``extend``, ``pairhmm``, ``band_superstep``, ``sw_fill``,
-``sw_walk`` or ``fused`` (the default: all six).  OLD_DIR holds the
+``sw_walk``, ``fused`` or ``smem`` (the default: all seven).  OLD_DIR holds the
 earlier commit's sources of the kernels named (``git show <commit>:<path>``
 of ``acc_genomics_tpu_torch/ops/.../csrc/``), built with the package's
 nvcc flags into its build directory:
@@ -33,7 +33,11 @@ nvcc flags into its build directory:
   fused    ``sw_extend.cu`` (C entry point ``sw_extend_fused``; the old
            interface takes an eh scratch): chip_smoke.py phase 14's seeds
            on its 100 Mbp index (built first, about a minute), every output
-           bit for bit.
+           bit for bit;
+  smem     ``smem_collect.cu`` (the same C interface ``smem_collect``) at
+           the default caps (24/24): chip_smoke.py phase 12's 65,536
+           reads and phase 14's 2,048 (both of 101, bucket 128) on the
+           same index, every output bit for bit.
 
 Every mode but ``band_superstep`` calls both builds through their C entry
 points with the same prepared arguments, so no wrapper's host work is
@@ -323,6 +327,57 @@ def fused_ab(old_dir: str, dev) -> dict:
     return out
 
 
+def smem_ab(old_dir: str, dev) -> dict:
+    """chip_smoke.py phases 12 and 14's reads at the default caps: the
+    counts, flags, probes and every interval row bit for bit."""
+    from acc_genomics_tpu_torch.config import SmemConfig
+    from acc_genomics_tpu_torch.engine.packing import pack_rows
+    from acc_genomics_tpu_torch.ops.smem import kernel as MK
+    from acc_genomics_tpu_torch.ops.smem.table import DeviceIndex
+    from acc_genomics_tpu_torch.tools.bench_shapes import smem_index_and_reads
+
+    built = old_library(old_dir, "smem_collect")
+    new_built = MK.build_kernels()["smem_collect"]
+    fn, new_fn = built.lib.smem_collect, new_built.lib.smem_collect
+    fn.argtypes, fn.restype = new_fn.argtypes, ctypes.c_int
+    regs = print_ptxas("smem_collect", built, new_built)
+    _, fm, smem_reads, bwa_reads = smem_index_and_reads()
+    idx = DeviceIndex.build(fm, dev)
+    params = SmemConfig().params()
+    chain_cap, mem_cap = MK.caps(params, 128)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    out = {"ptxas": regs, "caps": [chain_cap, mem_cap]}
+    for key, reads in (("reads_65536", smem_reads), ("reads_2048", bwa_reads)):
+        n, L = len(reads), 128
+        rows, lens = pack_rows(reads, L, n)
+        rows_d, lens_d = torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev)
+        n_mem = 5 * mem_cap * n
+
+        def with_lib(f, buf):
+            def go():
+                buf.zero_()  # the intervals past each count, the counts, the queue
+                err = f(_ptr(idx.tbl), idx.primary, *idx.l2_values, _ptr(rows_d),
+                        _ptr(lens_d), L, L, n, params.min_seed_len, params.split_len,
+                        params.split_width, params.max_mem_intv, chain_cap, mem_cap,
+                        _ptr(buf), *(_ptr(buf[n_mem + k * n:]) for k in range(3)),
+                        _ptr(buf[-1:]), stream)
+                if err:
+                    raise RuntimeError(f"smem_collect: error {err}")
+            return go
+
+        old_buf, new_buf = (torch.zeros(n_mem + 3 * n + 1, dtype=torch.int32, device=dev)
+                            for _ in range(2))
+        with_lib(fn, old_buf)()
+        with_lib(new_fn, new_buf)()
+        torch.cuda.synchronize()
+        if not torch.equal(old_buf, new_buf):
+            raise AssertionError(f"smem {key}: old and new kernels differ")
+        out[key] = in_turns(with_lib(fn, old_buf), with_lib(new_fn, new_buf))
+        print(f"smem, {n} reads of 101 at caps {chain_cap}/{mem_cap}: outputs equal bit "
+              f"for bit; {out[key]}", flush=True)
+    return out
+
+
 def pairhmm_ab(old_dir: str, dev) -> dict:
     """bench.py's pairs in their row buckets and the engine's own buckets."""
     import inspect
@@ -474,7 +529,7 @@ def band_superstep_ab(old_dir: str, dev) -> dict:
 
 
 ABS = {"extend": extend_ab, "pairhmm": pairhmm_ab, "band_superstep": band_superstep_ab,
-       "sw_fill": sw_fill_ab, "sw_walk": sw_walk_ab, "fused": fused_ab}
+       "sw_fill": sw_fill_ab, "sw_walk": sw_walk_ab, "fused": fused_ab, "smem": smem_ab}
 
 
 def main(argv) -> int:

@@ -113,6 +113,8 @@ SMEM_PROBE_BYTES = 2 * 32  # two 32-byte probe-table rows an extension
 SMEM_GENOME = 100_000_000  # bases: drivers/smem_driver.py's genome scale
 SMEM_READS = 65536  # bench_smem's lane count, reads of 101
 BWA_READS = 2048  # bench_bwamem's reads (max_occ 4, flank 100)
+RETRY_GENOME = 64_444_167  # bases: the BWA cell's chr20, repeat-rich
+RETRY_READS = 16384  # the BWA cell's reads of 150 a call
 HC_SIZES = (64, 1024)  # regions: bench_hc's shape, and one full SW max_batch
 HC_REPEATS = 5
 # phase 15: 256 reads of up to 250 against 8 haplotypes of 2048-4096
@@ -1155,20 +1157,103 @@ def pipeline_phase(card: str, engines, fm, genome, bwa_reads, seeding_hits,
                        engines.extend)
     tpipe = BwaMemDevicePipeline(tight, max_occ=4, flank=100)
     _, _, _, host_idx = tpipe.map_reads_arrays(edge)
-    rerun = tpipe.anatomy["rerun_reads"]
+    rerun, rerun_host = tpipe.anatomy["rerun_reads"], tpipe.anatomy["rerun_host_reads"]
     got = tpipe.map_reads(edge)
-    # only the read past seq_length is handed back; the capped reads rerun
-    # natively and take the card's extension
+    # only the read past seq_length is handed back; the capped reads take
+    # the SMEM retry at wide caps and the card's extension
     check(host_idx == [2] and rerun > 1, f"caps 6/4: host_idx {host_idx}, {rerun} reruns")
     check(got == BwaMemSeeding(tight, max_occ=4, flank=100).map_reads(edge),
           "pipeline with SMEM caps 6/4 vs BwaMemSeeding")
     say(f"pipeline edges: reads at both text ends with flank 300, a 300 bp read, an "
-        f"all-N read: == BwaMemSeeding; caps 6/4 rerun {rerun} of {len(edge)} reads "
-        f"natively and hand back only the 300 bp read, == BwaMemSeeding")
+        f"all-N read: == BwaMemSeeding; caps 6/4 retry {rerun} of {len(edge)} reads "
+        f"({rerun_host} on the host) and hand back only the "
+        f"300 bp read, == BwaMemSeeding")
     del tpipe, tight, pipe
     return {"name": "sw_extend_fused", "route": "cuda", "source": EXTEND_SOURCE,
             "replaces": FUSED_TPU, "launches": launches.get("sw_extend_fused", 0),
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **fused_bound}
+
+
+def retry_phase(card: str, dev, smem_entry: dict) -> None:
+    """Phase 20: the SMEM retry at wide caps on a uniform-like batch.  A
+    repeat-rich genome of chr20's length (``smem_repeat_genome``), 16,384
+    reads of 150 at the pipeline's width 256 and the default caps; the
+    reads that launch flags go through ``SmemEngine.retry_arrays``, whose
+    one launch (width 160, chain cap 161, 256 output rows) is held bit for
+    bit against the plain version and timed against its bound, and whose
+    intervals equal ``host_arrays``'.  Adds the retry's figures to
+    ``smem_entry``."""
+    import torch
+
+    import acc_genomics_tpu_torch.engine.smem_engine as smem_module
+    from acc_genomics_tpu_torch.engine.packing import pack_tm
+    from acc_genomics_tpu_torch.engine.smem_engine import SmemEngine
+    from acc_genomics_tpu_torch.ops.smem import kernel as MK
+    from acc_genomics_tpu_torch.ops.smem.index import FMIndex
+    from acc_genomics_tpu_torch.tools.bench_shapes import (
+        capture_calls,
+        smem_repeat_genome,
+        smem_retry_reads,
+    )
+
+    rng = np.random.default_rng(20)
+    t0 = time.perf_counter()
+    genome = smem_repeat_genome(rng, RETRY_GENOME)
+    fm = FMIndex.build(genome)
+    reads = smem_retry_reads(rng, genome, RETRY_READS)[:RETRY_READS]
+    eng = SmemEngine(fm, device=dev)
+    _, _, flags = eng.collect_arrays(*pack_tm(reads, 256, len(reads)))
+    flagged = [reads[k] for k in np.flatnonzero(flags)]
+    say(f"SMEM retry: repeat-rich index of {RETRY_GENOME} bases in "
+        f"{time.perf_counter() - t0:.2f} s; {len(flagged)} of {len(reads)} reads of 150 "
+        f"flagged at caps {MK.caps(eng.params, 256)}")
+    check(len(flagged) > 0, "no read flagged at the default caps")
+    # the main path's launches: the retry's one, none of the checks' and
+    # timings' below
+    calls = []
+    MK.LAUNCHES.clear()
+    with capture_calls(smem_module, "smem_collect", calls):
+        flat, counts = eng.retry_arrays(flagged)
+    retry_launches = MK.LAUNCHES["smem_collect"]
+    want_flat, want_counts = eng.host_arrays(flagged)
+    check(len(calls) == 1 and retry_launches == 1 and np.array_equal(counts, want_counts)
+          and np.array_equal(flat, want_flat), "retry_arrays vs host_arrays")
+    args, kw = calls[0]
+    seq_d = args[1]
+    chain_cap, mem_cap = MK.caps(args[3], seq_d.shape[0])
+    got = MK.smem_collect(*args, **kw)
+    t0 = time.perf_counter()
+    want = MK.smem_collect_plain(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+    check(err == 0, "SMEM kernel vs plain at the retry's caps: not exact")
+    probes = int(got[3].long().sum())
+    r_bound = bound(SMEM_PROBE_BYTES * probes + nbytes(*args[1:3], *got),
+                    SMEM_OPS_PER_PROBE * probes, INT32_OPS_PER_S)
+    probe_spread("smem retry batch", got[3])
+    k_ms = cuda_time_ms(lambda: MK.smem_collect(*args, **kw))
+    times = {}
+    for name, fn in (("retry_arrays", eng.retry_arrays), ("host_arrays", eng.host_arrays)):
+        fn(flagged)
+        torch.cuda.synchronize()
+        t = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn(flagged)
+            t.append((time.perf_counter() - t0) * 1e3)
+        times[name] = statistics.median(t)
+    say(f"smem retry batch: {seq_d.shape[1]} reads at width {seq_d.shape[0]}, caps "
+        f"({chain_cap}, {mem_cap}); max_abs_err={err}; {int(got[2].sum())} flagged again, "
+        f"{int(got[1].sum())} intervals (max {int(got[1].max())} a read), {probes} probes; "
+        f"kernel_ms={k_ms:.4f} plain_ms={plain_ms:.4f} (one call, host clock) bound "
+        f"{r_bound}; retry_arrays {times['retry_arrays']:.3f} ms against host_arrays "
+        f"{times['host_arrays']:.3f} ms a call (host clock, median of 5) [{card}]")
+    smem_entry.update(retry_reads=int(seq_d.shape[1]), retry_ms=k_ms,
+                      retry_plain_ms=plain_ms, retry_bound_ms=r_bound["bound_ms"],
+                      retry_bound_by=r_bound["bound_by"])
+    smem_entry["launches"] += retry_launches
+    del eng, fm, genome
 
 
 def band_vs_plain(args, name: str, ic: float):
@@ -2219,6 +2304,9 @@ def main() -> int:
     extend_entry = extend_phases(card, dev)
     smem_entry, fused_entry, (engines, fm, smem_reads) = smem_bwa_phases(
         card, dev, extend_entry)
+
+    # -- 20. the SMEM retry at wide caps on a uniform-like batch -------------------
+    retry_phase(card, dev, smem_entry)
 
     # -- 17. the engine service on phase 13's GenomicsEngine ------------------------
     phase_launches.append(service_phase(card, engines, fm, smem_reads, (reads, haps, f0)))

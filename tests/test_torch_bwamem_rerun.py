@@ -1,6 +1,7 @@
 """The port's BwaMemDevicePipeline on reads that overflow the SMEM
-kernel's caps (6/4 here, on a genome with repeats): the native host SMEM
-reruns them once on the calling thread (span ``bwa.pipe.rerun``), and
+kernel's caps (6/4 here, on a genome with repeats): ``retry_arrays``
+reruns them once on the calling thread (span ``bwa.pipe.rerun``: a
+second launch at wide caps, the native host SMEM for what it flags), and
 their seeds take the card route's enumeration and fused extension with
 every other read's; only reads past ``seq_length`` are handed back.
 SeedHits are compared exactly with ``BwaMemSeeding`` and the JAX

@@ -403,8 +403,8 @@ def test_cuda_smem_kernel_matches_plain(cuda, n_reads):
     """The persistent lockstep kernel bit for bit against its plain
     version: 1, 33 and 2,048 reads (the last with a 30% N share on a
     quarter of them), at the default caps, at caps that 24-row chains and
-    most reads bust (flag set, the same rows up to the stop), and at the
-    widest chains."""
+    most reads bust (flag set, the same rows up to the stop), and at
+    32-row chains (wider ones: test_cuda_smem_wide_caps_match_plain)."""
     from acc_genomics_tpu_torch.ops.smem.reference import SmemParams
 
     rng = np.random.default_rng(6)
@@ -448,6 +448,95 @@ def test_cuda_smem_engine_and_bwa_mem_match_host(cuda):
     sub = reads[:16]
     assert (BwaMemSeeding(engines, max_occ=4).map_reads(sub)
             == BwaMemSeeding(cpu, max_occ=4).map_reads(sub))
+
+
+def _retry_case(rng):
+    """A repeat-rich 200 kbp index and 403 reads of 150 over it: reads
+    that the default caps flag, three whose chains outgrow 32 rows."""
+    from acc_genomics_tpu_torch.tools.bench_shapes import smem_repeat_genome, smem_retry_reads
+
+    ensure_native()
+    genome = smem_repeat_genome(rng, 200_000)
+    return FMIndex.build(genome), smem_retry_reads(rng, genome, 400)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chain_cap,width", [(24, 160), (64, 160), (161, 160),
+                                             (MK.CHAIN_MAX, 256), (MK.chain_room(512), 512)])
+def test_cuda_smem_wide_caps_match_plain(cuda, chain_cap, width):
+    """The kernel at the retry's caps (256 output rows) bit for bit
+    against its plain version on reads the default caps flag.  At the
+    largest chain cap a 32-lane block takes 224,000 bytes of chains and
+    8,192 of reads: the launch is taken both for the reads and for a
+    batch past 64 reads an SM, whose 64-lane blocks would not fit.  At
+    width 512 the largest chain cap is 241, and 250 is refused before the
+    launch."""
+    from acc_genomics_tpu_torch.engine.packing import pack_tm
+
+    fm, reads = _retry_case(np.random.default_rng(12))
+    idx = DeviceIndex.build(fm, cuda)
+    params = SmemConfig().params()._replace(curr_cap=chain_cap, mem_cap=256)
+
+    def launch(batch):
+        seq, lens = pack_tm(batch, width, len(batch))
+        seq_d, lens_d = torch.from_numpy(seq).to(cuda), torch.from_numpy(lens).to(cuda)
+        before = MK.LAUNCHES["smem_collect"]
+        got = MK.smem_collect(idx, seq_d, lens_d, params)
+        torch.cuda.synchronize()
+        assert MK.LAUNCHES["smem_collect"] == before + 1
+        return seq_d, lens_d, got
+
+    seq_d, lens_d, got = launch(reads)
+    if width > 256:
+        with pytest.raises(ValueError, match="CHAIN_MAX"):
+            MK.smem_collect(idx, seq_d, lens_d, params._replace(curr_cap=MK.CHAIN_MAX))
+    want = MK.smem_collect_plain(idx, seq_d, lens_d, params)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    flagged = int(got[2].sum())
+    assert flagged > 0 if chain_cap < 161 else flagged == 0
+    if chain_cap == MK.chain_room(width):
+        # each read's answer does not depend on its batch
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        copies = 64 * sms // len(reads) + 1
+        _, _, big = launch(reads * copies)
+        assert torch.equal(big[0], got[0].repeat(1, 1, copies))
+        for a, b in zip(big[1:], got[1:]):
+            assert torch.equal(a, b.repeat(copies))
+
+
+@pytest.mark.gpu
+def test_cuda_smem_retry_matches_host(cuda):
+    """``retry_arrays`` on the reads the first launch flags, a
+    trinucleotide repeat of 150 among them: one more
+    launch, nothing on the host, ``host_arrays``' intervals in order."""
+    from acc_genomics_tpu_torch.engine.packing import pack_tm
+
+    fm, reads = _retry_case(np.random.default_rng(13))
+    reads.append(np.resize(np.array([1, 0, 2], np.uint8), 150))
+    eng = SmemEngine(fm, device=cuda)
+    _, _, flags = eng.collect_arrays(*pack_tm(reads, 160, len(reads)))
+    flagged = [reads[k] for k in np.flatnonzero(flags)]
+    assert len(flagged) > 10 and flags[-1]
+    before, host = MK.LAUNCHES["smem_collect"], eng.stats["retry_host"]
+    flat, counts = eng.retry_arrays(flagged)
+    assert MK.LAUNCHES["smem_collect"] == before + 1 and eng.stats["retry_host"] == host
+    want_flat, want_counts = eng.host_arrays(flagged)
+    np.testing.assert_array_equal(counts, want_counts)
+    np.testing.assert_array_equal(flat, want_flat)
+
+
+@pytest.mark.gpu
+def test_cuda_pipeline_retries_flagged_reads_on_the_card(cuda):
+    fm, reads = _retry_case(np.random.default_rng(14))
+    eng = GenomicsEngine(device=cuda)
+    eng.set_index(fm)
+    pipe = BwaMemDevicePipeline(eng, max_occ=4, flank=100)
+    before = MK.LAUNCHES["smem_collect"]
+    got = pipe.map_reads(reads)
+    assert MK.LAUNCHES["smem_collect"] - before == 2
+    assert pipe.anatomy["rerun_reads"] > 10 and pipe.anatomy["rerun_host_reads"] == 0
+    assert got == BwaMemSeeding(eng, max_occ=4, flank=100).map_reads(reads)
 
 
 def _pipeline_case(cuda, flank):

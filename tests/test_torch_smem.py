@@ -149,8 +149,11 @@ def test_plain_on_bwa_index_fixture():
 
 
 def test_caps_and_dispatch(rng):
-    assert K.caps(DEFAULT_SMEM_PARAMS) == (24, 24)
-    assert K.caps(SmemParams(curr_cap=96, mem_cap=512)) == (K.CHAIN_MAX, 256)
+    assert K.caps(DEFAULT_SMEM_PARAMS, 128) == (24, 24)
+    assert K.caps(SmemParams(curr_cap=96, mem_cap=512), 128) == (96, 256)
+    assert K.caps(SmemParams(curr_cap=K.CHAIN_MAX), 256) == (K.CHAIN_MAX, 24)
+    with pytest.raises(ValueError, match="CHAIN_MAX"):
+        K.caps(SmemParams(curr_cap=K.CHAIN_MAX + 1), 128)
     fm = FMIndex.build(gen_reference_with_repeats(rng, 600))
     idx = DeviceIndex.build(fm, "cpu")
     seq = torch.full((32, 2), 4, dtype=torch.uint8)

@@ -47,7 +47,8 @@ TREES = {
            {"pairhmm.host_forward", "sw.host_align"}),
     "pipe": ({(None, "bwa.pipe.smem"), (None, "bwa.pipe.rerun"), (None, "bwa.pipe.enum"),
               (None, "bwa.pipe.extend"), ("bwa.pipe.extend", "bwa.pipe.fetch")}
-             | {("bwa.pipe.smem", k) for k in _SMEM},
+             | {("bwa.pipe.smem", k) for k in _SMEM}
+             | {("bwa.pipe.rerun", k) for k in _SMEM},
              set()),
     "host": ({(None, "bwa.host")}
              | {("bwa.host", f"bwa.host.{k}") for k in ("smem", "enum", "extend", "hits")}
@@ -100,9 +101,9 @@ def _hc_entry(rng):
 
 
 def _bwa_entries(rng):
-    """Reads that overflow the SMEM caps (the pipeline's native rerun, the
-    host route's rerun) and seeds past the extension's query cap (its host
-    route)."""
+    """Reads that overflow the SMEM caps (the pipeline's retry at wide
+    caps, the host route's rerun) and seeds past the extension's query cap
+    (its host route)."""
     genome = gen_reference_with_repeats(rng, 8000, repeat_len=60, n_repeats=6)
     reads = gen_smem_reads(rng, genome, 12, read_len=75)
     cfg = EngineConfig(smem=SmemConfig(curr_cap=8, mem_cap=8),

@@ -12,13 +12,10 @@ device route:
   fetched; then one small D2H copy brings every read's count, flag and
   probe count, and one more brings exactly the live intervals, gathered
   on the card; with no interval anywhere nothing is gathered or copied;
-* reads past ``seq_length`` and reads the kernel flags (a chain or the
-  output past its cap) rerun on the native host engine, on a worker
-  thread concurrent with the device work (the flagged ones as soon as the
-  counts arrive);
-* ``retry_arrays`` gives reads the kernel flagged a second launch at caps
-  taken from their batch (chains as long as the widest read, the output
-  at ``max_intv_alloc``), and only what that launch still flags takes the
+* ``retry_arrays`` gives reads the kernel flagged (a chain or the output
+  past its cap) a second launch at caps taken from their batch (chains
+  as long as the widest read, the output at ``max_intv_alloc``), and only
+  reads past ``seq_length`` and what that launch still flags take the
   native host engine;
 * with a ``mesh``, the probe table goes to each of its distinct devices
   once and each batch's reads run data-parallel over its "data" axis
@@ -32,7 +29,6 @@ version.
 
 from __future__ import annotations
 
-import concurrent.futures
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -142,9 +138,9 @@ class SmemEngine:
 
     def _run(self, batches: Sequence[Tuple[np.ndarray, np.ndarray]], params=None):
         """Stage and launch every (seq_tm, lens) batch at ``params`` (the
-        engine's by default), then fetch: (flat (tot, 5) int32 intervals
-        read-major over all batches, counts (N,), flags (N,) bool), reads
-        in batch order.  Flagged reads count 0."""
+        engine's by default), then fetch: (flat (tot, 5) int64 [x0, x1, s,
+        start, end] read-major over all batches, counts (N,) int64, flags
+        (N,) bool), reads in batch order.  Flagged reads count 0."""
         params = self.params if params is None else params
         with Timer("smem.pack"):
             staged = [self._stage(seq, lens) for seq, lens in batches]
@@ -152,7 +148,7 @@ class SmemEngine:
             launched = [self._launch(st, *seq.shape, params)
                         for st, (seq, _) in zip(staged, batches)]
         if not launched:
-            return np.zeros((0, 5), np.int32), np.zeros(0, np.int64), np.zeros(0, bool)
+            return np.zeros((0, 5), np.int64), np.zeros(0, np.int64), np.zeros(0, bool)
         # the counts' D2H copy waits for the kernels
         with Timer("smem.wait"):
             counts_dev = torch.cat([torch.stack(o[1:]) for o in launched], 1)
@@ -163,7 +159,7 @@ class SmemEngine:
             flags = counts[1] != 0
             live = np.where(flags, 0, counts[0]).astype(np.int64)
             tot = int(live.sum())
-            flat = np.zeros((0, 5), np.int32)
+            flat = np.zeros((0, 5), np.int64)
             if tot:
                 parts, col = [], 0
                 for mem, mem_n, flag, _ in launched:
@@ -174,8 +170,9 @@ class SmemEngine:
                     if used:
                         rows = torch.arange(used, device=mem.device)[None, :]
                         parts.append(mem[:, :used].permute(2, 1, 0)[rows < nn[:, None]])
-                flat = torch.cat(parts).cpu().numpy()
-                self.anatomy["d2h_bytes"] += flat.nbytes
+                fetched = torch.cat(parts).cpu().numpy()
+                self.anatomy["d2h_bytes"] += fetched.nbytes
+                flat = fetched.astype(np.int64)
         return flat, live, flags
 
     def host_arrays(self, reads: Sequence[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
@@ -216,11 +213,10 @@ class SmemEngine:
                                           mem_cap=self.params.max_intv_alloc)
             seg = max(int(self.config.batch_size), 1)
             seq_tm, rlens = pack_tm([reads[k] for k in card], width, len(card))
-            got, live, flags = self._run(
+            flat, live, flags = self._run(
                 [(seq_tm[:, lo:lo + seg], rlens[lo:lo + seg])
                  for lo in range(0, len(card), seg)], params)
             counts[card] = live
-            flat = got.astype(np.int64)
             left = np.union1d(left, card[flags])
         if len(left):
             self.stats["retry_host"] += len(left)
@@ -238,79 +234,50 @@ class SmemEngine:
     def collect_flat(self, reads: Sequence[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
         """The intervals of ``collect`` as arrays: (flat (tot, 5) int64
         [x0, x1, s, start, end], read-major in read order and each read's
-        in the oracle's order; counts (N,) int64)."""
+        in the oracle's order; counts (N,) int64).  One launch for every
+        read up to ``seq_length``, by length bucket; the reads it flags and
+        those past ``seq_length`` take one ``retry_arrays``."""
         n = len(reads)
         self.stats["reads"] += n
         seq_len = self.config.seq_length
         buckets = self._buckets()
-        host_out = {}  # read index -> its (k, 5) intervals from the host
         lens = np.fromiter((len(r) for r in reads), np.int64, n)
-        host_idx = np.flatnonzero(lens > seq_len).tolist()
         which = np.searchsorted(buckets, lens)  # the first bucket >= len
-        groups = {buckets[b]: np.flatnonzero(which == b).tolist()
-                  for b in np.unique(which[lens <= seq_len])}
-
-        def host_work(idx):
-            with Timer("smem.host_collect"):
-                flat, counts = self.host_arrays([reads[k] for k in idx])
-                host_out.update(zip(idx, np.split(flat, np.cumsum(counts)[:-1])))
-
-        # host reruns on one worker thread beside the device work (the
-        # ctypes call releases the GIL)
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
-            futures = [pool.submit(host_work, host_idx)] if host_idx else []
-            seg = max(int(self.config.batch_size), 1)
-            order, batches = [], []
-            with Timer("smem.pack"):
-                for bucket, idxs in groups.items():
-                    for lo in range(0, len(idxs), seg):
-                        part = idxs[lo:lo + seg]
-                        order += part
-                        batches.append(pack_tm([reads[k] for k in part], bucket, len(part)))
-            flat, live, flags = self._run(batches)
-            rerun = [k for k, f in zip(order, flags) if f]
-            if rerun:
-                self.stats["overflow_reruns"] += len(rerun)
-                futures.append(pool.submit(host_work, rerun))
-            with Timer("smem.host_join"):
-                for f in futures:
-                    f.result()  # re-raises a host error
-        # each read's (start, count) in the device rows, then the host's
-        counts = np.zeros(n, np.int64)
-        starts = np.zeros(n, np.int64)
-        order = np.asarray(order, np.int64)
-        on_card = ~flags
-        counts[order[on_card]] = live[on_card]
-        starts[order[on_card]] = (np.cumsum(live) - live)[on_card]
-        parts = [flat.astype(np.int64)]
-        if host_out:
-            hk = np.fromiter(host_out, np.int64, len(host_out))
-            hc = np.fromiter((len(host_out[k]) for k in hk), np.int64, len(hk))
-            counts[hk] = hc
-            starts[hk] = len(flat) + np.cumsum(hc) - hc
-            parts += [host_out[k] for k in hk]
-        rows = np.repeat(starts - (np.cumsum(counts) - counts), counts)
-        rows += np.arange(len(rows))
-        return np.concatenate(parts)[rows], counts
+        seg = max(int(self.config.batch_size), 1)
+        order, batches = [], []
+        with Timer("smem.pack"):
+            for b in np.unique(which[lens <= seq_len]).tolist():
+                idxs = np.flatnonzero(which == b)
+                for lo in range(0, len(idxs), seg):
+                    part = idxs[lo:lo + seg]
+                    order.append(part)
+                    batches.append(pack_tm([reads[k] for k in part], buckets[b], len(part)))
+        order = np.concatenate(order) if order else np.zeros(0, np.int64)
+        flat, live, flags = self._run(batches)
+        self.stats["overflow_reruns"] += int(flags.sum())
+        past = lens > seq_len
+        past[order[flags]] = True
+        redo = np.flatnonzero(past)
+        rflat, rcounts = self.retry_arrays([reads[k] for k in redo])
+        # every read once: the card's clean reads (rows in batch order,
+        # the flagged ones' empty), then the retried ones
+        return merge_intervals(np.zeros((0, 5), np.int64), np.zeros(n, np.int64),
+                               np.concatenate([order[~flags], redo]),
+                               np.concatenate([flat, rflat]),
+                               np.concatenate([live[~flags], rcounts]))
 
     def collect_arrays(self, seq_tm: np.ndarray, lens: np.ndarray):
         """Raw-array collection for device pipelines: seq_tm (L, B) uint8
-        codes, lens (B,).  Returns (mem (5, used, B) int32 [x0, x1, s,
-        start, end], mem_n (B,), overflow (B,) bool), used the largest
-        count.  Flagged reads (``overflow``) carry no intervals here;
-        callers rerun them (``retry_arrays`` or ``host_arrays``)."""
+        codes, lens (B,).  Returns (flat (tot, 5) int64 [x0, x1, s, start,
+        end], read-major in batch order; counts (B,) int64; flags (B,)
+        bool).  Flagged reads count 0 here; callers take them through
+        ``retry_arrays``."""
         seq_tm = np.asarray(seq_tm, np.uint8)
         lens = np.asarray(lens, np.int32)
         bsz = seq_tm.shape[1]
         self.stats["reads"] += bsz
         seg = max(int(self.config.batch_size), 1)
-        flat, live, flags = self._run(
+        flat, counts, flags = self._run(
             [(seq_tm[:, lo:lo + seg], lens[lo:lo + seg]) for lo in range(0, bsz, seg)])
         self.stats["overflow_reruns"] += int(flags.sum())
-        used = int(live.max(initial=0))
-        mem = np.zeros((5, used, bsz), np.int32)
-        if len(flat):
-            rid = np.repeat(np.arange(bsz), live)
-            row = np.arange(len(flat)) - np.repeat(np.cumsum(live) - live, live)
-            mem[:, row, rid] = flat.T
-        return mem, live.astype(np.int32), flags
+        return flat, counts, flags

@@ -99,14 +99,6 @@ class BwaMemSeeding:
             return out
 
 
-def _flat_intervals(mem, mem_n):
-    """``collect_arrays``' (5, used, B) intervals -> (flat (tot, 5),
-    read-major, each read's in its order; counts (B,) int64)."""
-    counts = mem_n.astype(np.int64)
-    valid = np.arange(mem.shape[1])[None, :] < counts[:, None]  # (B, used)
-    return mem.transpose(2, 1, 0)[valid], counts
-
-
 def _no_seeds(host_idx):
     empty = np.zeros(0, np.int32)
     return (np.zeros((len(FUSED_KEYS), 0), np.int32), empty, (empty,) * 3, host_idx)
@@ -179,12 +171,11 @@ class BwaMemDevicePipeline:
             empty = np.zeros(0, np.uint8)
             rows_rm, rlens = pack_rows([empty if len(r) > width else r for r in reads],
                                        width, n_reads)
-            mem, mem_n, overflow = self.engine.smem.collect_arrays(
+            flat, counts, overflow = self.engine.smem.collect_arrays(
                 np.ascontiguousarray(rows_rm.T), rlens)
         self.anatomy["smem_s"] += smem.elapsed
         # the flagged reads' intervals from the retry at wide caps, merged
         # read-major with the card's
-        flat, counts = _flat_intervals(mem, mem_n)
         rerun = np.flatnonzero(overflow)
         if len(rerun):
             smem_eng = self.engine.smem

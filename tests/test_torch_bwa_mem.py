@@ -43,17 +43,25 @@ def _hits(hits):
     return [dataclasses.astuple(h) for h in hits]
 
 
-@pytest.mark.parametrize("max_occ,flank", [(4, 100), (8, 30)])
-def test_map_reads_matches_jax_and_oracle(max_occ, flank, rng):
+@pytest.fixture(scope="module")
+def case():
+    """One genome, its reads and both sides' engines for every case."""
+    rng = np.random.default_rng(0)
     genome = gen_reference_with_repeats(rng, 5000)
     reads = gen_smem_reads(rng, genome, 6, read_len=101)
     reads.append(genome[1000:1300].copy())  # past seq_length and max_qlen: host
     reads.append(np.full(40, 4, np.uint8))  # no interval
     jax_eng = GenomicsEngine()
     fm = jax_eng.load_reference(genome)
-    want = JaxSeeding(jax_eng, max_occ=max_occ, flank=flank).map_reads(reads)
     engines = BwaEngines(SmemEngine(FMIndex.build(genome), device="cpu"),
                          ExtendEngine(device="cpu"))
+    return reads, jax_eng, fm, engines
+
+
+@pytest.mark.parametrize("max_occ,flank", [(4, 100), (8, 30)])
+def test_map_reads_matches_jax_and_oracle(max_occ, flank, case):
+    reads, jax_eng, fm, engines = case
+    want = JaxSeeding(jax_eng, max_occ=max_occ, flank=flank).map_reads(reads)
     got = BwaMemSeeding(engines, max_occ=max_occ, flank=flank).map_reads(reads)
     assert [_hits(h) for h in got] == [_hits(h) for h in want]
     assert all(isinstance(h, SeedHit) for hs in got for h in hs)

@@ -2,8 +2,8 @@
 
 The port runs on ``device="cpu"`` (the kernel's plain version on the
 engine's own route: length buckets, batches cut at ``batch_size``, every
-batch launched before one counts fetch and one live-interval fetch,
-concurrent native host reruns of long and flagged reads).  Its interval
+batch launched before one counts fetch and one live-interval fetch, one
+retry of long and flagged reads at wide caps).  Its interval
 lists equal the oracle's in order, and the JAX engine's (whose multi-read
 route the small ``batch_size`` cases take) as sets.
 """
@@ -92,9 +92,9 @@ def test_collect_arrays_no_intervals(rng):
     lens[-2:] = 0
     for cfg in (SmemConfig(batch_size=64, seq_length=96), SmemConfig(batch_size=4, seq_length=96)):
         eng = SmemEngine(fm, cfg, device="cpu")
-        mem, nn, ovf = eng.collect_arrays(seq, lens)
+        flat, nn, ovf = eng.collect_arrays(seq, lens)
         assert nn.shape == (n,) and not nn.any() and not ovf.any()
-        assert mem.shape == (5, 0, n)
+        assert flat.shape == (0, 5)
         assert eng.anatomy["d2h_bytes"] == 3 * 4 * n  # the counts only
 
 
@@ -107,16 +107,17 @@ def test_collect_arrays_matches_collect(rng):
     for k, r in enumerate(reads):
         seq[: len(r), k] = r
     eng = SmemEngine(fm, SmemConfig(batch_size=8, seq_length=96), device="cpu")
-    mem, nn, ovf = eng.collect_arrays(seq, lens)
-    assert mem.shape == (5, int(nn.max()), len(reads)) and mem.dtype == np.int32
+    flat, nn, ovf = eng.collect_arrays(seq, lens)
+    assert flat.shape == (int(nn.sum()), 5) and flat.dtype == nn.dtype == np.int64
     want = eng.collect(reads)
     assert ovf.sum() < len(reads) // 4
+    starts = np.cumsum(nn) - nn
     for k in range(len(reads)):
-        if ovf[k]:  # flagged: no intervals here, collect reran it on the host
+        if ovf[k]:  # flagged: no intervals here, collect retried it
             assert nn[k] == 0
             continue
-        got = [dict(zip(("x0", "x1", "s", "start", "end"), map(int, mem[:, j, k])))
-               for j in range(nn[k])]
+        got = [dict(zip(("x0", "x1", "s", "start", "end"), row))
+               for row in flat[starts[k]: starts[k] + nn[k]].tolist()]
         assert got == want[k]
 
 

@@ -4,8 +4,9 @@ from their batch (chains of the width + 1 rows, ``max_intv_alloc``
 output rows), and only what that launch flags too takes the native host
 engine.  On the CPU the launch is the kernel's plain version.  Intervals
 are compared exactly and in order: with the JAX oracle, with
-``host_arrays``, and through ``BwaMemDevicePipeline`` with
-``BwaMemSeeding`` and the oracle chain."""
+``host_arrays``, through ``collect_flat`` (whose flagged reads take the
+same retry) and through ``BwaMemDevicePipeline`` with ``BwaMemSeeding``
+and the oracle chain."""
 
 import dataclasses
 import pathlib
@@ -20,7 +21,8 @@ from acc_genomics_tpu.ops.smem.reference import mem_collect_intv_oracle as jax_o
 from acc_genomics_tpu_torch.config import EngineConfig, SmemConfig
 from acc_genomics_tpu_torch.engine.genomics_engine import GenomicsEngine
 from acc_genomics_tpu_torch.engine.packing import pack_tm
-from acc_genomics_tpu_torch.engine.smem_engine import SmemEngine
+from acc_genomics_tpu_torch.engine.smem_engine import SmemEngine, split_dicts
+from acc_genomics_tpu_torch.io.synth import gen_smem_reads
 from acc_genomics_tpu_torch.models import BwaMemDevicePipeline, BwaMemSeeding
 from acc_genomics_tpu_torch.ops.extend.reference import extend_seed_oracle
 from acc_genomics_tpu_torch.ops.smem import kernel as K
@@ -165,6 +167,78 @@ def test_the_pipeline_retries_on_the_card_route(case):
         want = _oracle_hits(case["fm"], sub[k], eng.smem.params, ext)
         assert [(h.qbeg, h.qend, h.rbeg, h.rend, h.score, h.true_score, h.width, h.occ)
                 for h in got[k]] == want, k
+
+
+def _rows(flat, counts):
+    """Each read's interval tuples from read-major ``flat`` and ``counts``."""
+    return [[tuple(iv[f] for f in FIELDS) for iv in ivs] for ivs in split_dicts(flat, counts)]
+
+
+def _oracle_rows(fm, reads, params):
+    return [[tuple(iv[f] for f in FIELDS) for iv in mem_collect_intv_oracle(fm, r, params)]
+            for r in reads]
+
+
+def test_collect_flat_retries_the_busts_on_the_card(monkeypatch):
+    """The tight-cap tandem-repeat genome (caps 4/8, every read of it
+    flags) with two reads past ``seq_length``: one ``retry_arrays`` call
+    takes the flagged reads and the long ones, with one more launch, and
+    the answers equal ``host_arrays`` and the oracle.  At
+    ``max_intv_alloc`` 8 the wide launch flags the reads of more than 8
+    intervals again: ``retry_host`` counts them and the long reads,
+    nothing else."""
+    rng = np.random.default_rng(7)
+    motif = rng.integers(0, 4, 8).astype(np.uint8)
+    genome = np.tile(motif, 1500)
+    mut = rng.random(len(genome)) < 0.02
+    genome[mut] = (genome[mut] + rng.integers(1, 4, mut.sum())) % 4
+    reads = gen_smem_reads(rng, genome, 18, read_len=90, error_rate=0.01)
+    reads[3:3] = [genome[100:220].copy(), genome[4000:4150].copy()]
+    cfg = SmemConfig(batch_size=32, read_buckets=(96,), seq_length=96, curr_cap=4,
+                     mem_cap=8, max_intv_alloc=8)
+    fm = FMIndex.build(genome)
+    eng = SmemEngine(fm, cfg, device="cpu")
+    retried = []
+    real_retry = eng.retry_arrays
+    monkeypatch.setattr(eng, "retry_arrays", lambda rs: retried.append(rs) or real_retry(rs))
+    before = timers()
+    flat, counts = eng.collect_flat(reads)
+    spans = _spans(before)
+    short = [k for k, r in enumerate(reads) if len(r) <= 96]
+    _, first = _plain(eng.index, [reads[k] for k in short], 96, eng.params)
+    flagged = [short[k] for k in np.flatnonzero(first)]
+    assert eng.stats["overflow_reruns"] == len(flagged) == len(short)
+    assert len(retried) == 1 and [len(r) for r in retried[0]] == [len(r) for r in reads]
+    assert spans["smem.launch"] == 2 and spans["smem.retry_host"] == 1
+    want_flat, want_counts = eng.host_arrays(reads)
+    np.testing.assert_array_equal(counts, want_counts)
+    np.testing.assert_array_equal(flat, want_flat)
+    assert flat.dtype == np.int64
+    past_cap = int((counts[flagged] > 8).sum())
+    assert 0 < past_cap < len(flagged) and eng.stats["retry_host"] == 2 + past_cap
+    assert _rows(flat, counts) == _oracle_rows(fm, reads, eng.params)
+
+
+def test_collect_flat_mixes_long_flagged_and_clean_reads_in_read_order(case):
+    """Clean, flagged and long reads, a short one, an all-N and an empty
+    read, shuffled: the rows come read-major in read order, each read's as
+    ``collect`` gives it in the unshuffled call and as the oracle gives
+    it."""
+    eng = SmemEngine(case["fm"], SmemConfig(read_buckets=(64, 128), seq_length=128),
+                     device="cpu")
+    clean = [case["reads"][k] for k in range(8) if k not in case["flagged"]][:4]
+    flagged = [case["reads"][k] for k in case["flagged"][:3]]
+    long = [case["genome"][2000:2300].copy(), case["genome"][7000:7140].copy()]
+    odd = [flagged[0][:40].copy(), np.full(60, 4, np.uint8), np.zeros(0, np.uint8)]
+    batch = clean + flagged + long + odd
+    perm = np.random.default_rng(3).permutation(len(batch))
+    flat, counts = eng.collect_flat([batch[k] for k in perm])
+    assert eng.stats["overflow_reruns"] >= len(flagged)
+    assert eng.stats["retry_host"] >= len(long)
+    got = _rows(flat, counts)
+    want = eng.collect(batch)
+    assert got == [[tuple(iv[f] for f in FIELDS) for iv in want[k]] for k in perm]
+    assert got == _oracle_rows(case["fm"], [batch[k] for k in perm], eng.params)
 
 
 def test_the_wrapper_raises_past_chain_max(case):

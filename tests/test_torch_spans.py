@@ -52,10 +52,10 @@ TREES = {
              set()),
     "host": ({(None, "bwa.host")}
              | {("bwa.host", f"bwa.host.{k}") for k in ("smem", "enum", "extend", "hits")}
-             | {("bwa.host.smem", k) for k in _SMEM | {"smem.host_join", "smem.split"}}
+             | {("bwa.host.smem", k) for k in _SMEM | {"smem.split"}}
              | {("bwa.host.extend", f"extend.{k}") for k in (
                  "prep", "bucket", "pack", "launch", "fetch", "host_join", "resolve")},
-             {"smem.host_collect", "extend.host"}),
+             {"extend.host"}),
 }
 ZERO = {"total_s": 0.0, "count": 0}
 
@@ -101,8 +101,8 @@ def _hc_entry(rng):
 
 
 def _bwa_entries(rng):
-    """Reads that overflow the SMEM caps (the pipeline's retry at wide
-    caps, the host route's rerun) and seeds past the extension's query cap
+    """Reads that overflow the SMEM caps (the retry at wide caps, in the
+    pipeline and in the host route's ``collect``) and seeds past the extension's query cap
     (its host route)."""
     genome = gen_reference_with_repeats(rng, 8000, repeat_len=60, n_repeats=6)
     reads = gen_smem_reads(rng, genome, 12, read_len=75)

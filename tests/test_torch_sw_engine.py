@@ -8,11 +8,15 @@ offsets are exact and the ``stats`` counters equal.
 """
 
 import dataclasses
+import os
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+from acc_genomics_tpu import native as jax_native
 from acc_genomics_tpu.config import SWConfig as JaxSWConfig
 from acc_genomics_tpu.engine.sw_engine import SWEngine as JaxEngine
 from acc_genomics_tpu.io.synth import gen_sw_batch
@@ -27,6 +31,35 @@ from acc_genomics_tpu_torch.parallel import make_mesh
 
 def _jax(cfg):
     return JaxSWConfig(**dataclasses.asdict(cfg))
+
+
+@pytest.fixture(scope="module")
+def jax_native_lib(tmp_path_factory):
+    """The JAX package's native library, which the JAX engine's host route
+    and walk run on: without it that engine answers from the oracle, which
+    aligns an empty side differently.  The package builds the library at
+    first use with an unlocked ``make`` into its own directory, and a
+    process that loads it while another process links it reads a
+    half-written file and keeps None for good.  Such a process gets its own
+    copy here, built by the package's Makefile into a private directory."""
+    if jax_native.get_lib() is not None:
+        yield
+        return
+    src = os.path.dirname(os.path.abspath(jax_native.__file__))
+    out = tmp_path_factory.mktemp("jax_native")
+    shutil.copy(os.path.join(src, "accnative.cpp"), out)
+    try:
+        subprocess.run(["make", "-s", "-C", str(out), "-f", os.path.join(src, "Makefile"),
+                        "libaccnative.so"], check=True, capture_output=True, text=True)
+    except (OSError, subprocess.CalledProcessError) as e:
+        pytest.skip(f"the JAX package's native library does not build: "
+                    f"{getattr(e, 'stderr', None) or e}")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_LIB_PATH", str(out / "libaccnative.so"))
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_tried", False)
+        assert jax_native.get_lib() is not None
+        yield
 
 
 def _fallback_case(rng):
@@ -64,7 +97,7 @@ CASES = {"host_fallback": _fallback_case, "mixed_buckets_chunked": _mixed_bucket
 
 @pytest.mark.parametrize("strategy", [0, 1, 2, 3])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_align_matches_jax_engine(case, strategy, rng):
+def test_align_matches_jax_engine(case, strategy, rng, jax_native_lib):
     refs, alts, cfg = CASES[case](rng)
     port = SWEngine(cfg, device="cpu")
     jax_eng = JaxEngine(_jax(cfg), use_pallas=False)
@@ -100,7 +133,7 @@ def test_chunks_launch_before_one_fetch(monkeypatch, rng):
     assert got == [sw_align_oracle(r, a, 0) for r, a in zip(refs, alts)]
 
 
-def test_align_one_ref_and_empty(rng):
+def test_align_one_ref_and_empty(rng, jax_native_lib):
     ref, alts = gen_sw_batch(rng, 5, ref_len=60)
     port = SWEngine(SWConfig(seq_buckets=(64,)), device="cpu")
     jax_eng = JaxEngine(JaxSWConfig(seq_buckets=(64,)), use_pallas=False)
@@ -141,7 +174,7 @@ EMPTY_SIDES = {"ref": lambda r, a: (EMPTY, a), "alt": lambda r, a: (r, EMPTY),
 
 @pytest.mark.parametrize("strategy", [0, 1, 2, 3])
 @pytest.mark.parametrize("side", sorted(EMPTY_SIDES))
-def test_empty_side_aligns_on_the_host_as_the_jax_engine(side, strategy, rng):
+def test_empty_side_aligns_on_the_host_as_the_jax_engine(side, strategy, rng, jax_native_lib):
     """A pair with an empty ref or alt, mixed into a batch of normal pairs,
     runs on the native host engine: ([], 0), the JAX engine's answer on
     its XLA route, counted in host_fallback."""
@@ -160,7 +193,7 @@ def test_empty_side_aligns_on_the_host_as_the_jax_engine(side, strategy, rng):
     assert dict(port.stats, host_fallback=0) == dict(jax_eng.stats, host_fallback=0)
 
 
-def test_empty_side_through_align_one_ref_genomics_engine_and_mesh(rng):
+def test_empty_side_through_align_one_ref_genomics_engine_and_mesh(rng, jax_native_lib):
     ref, alts = gen_sw_batch(rng, 5, ref_len=60)
     alts[2] = EMPTY
     cfg = SWConfig(seq_buckets=(64,))

@@ -18,11 +18,14 @@ of the reference's FalconPairHMM::computePairhmm dispatch):
   band kernel expanding the coefficients
   (``pairhmm_forward_dpsp_from_quals``) at a chunk of ``sp_chunk_rows``
   rows; the flat entry points take the dict path;
-* the device route ships uint8 byte planes (quals, codes, hap) and the
-  kernel expands the coefficients itself (``config.quals_expand``); with
-  ``config.upload="f32"`` the flat path ships the native fp32 coefficient
-  pack instead and runs the kernel's coefficient front end
-  (``pairhmm_forward``); the dict path ships byte planes either way;
+* the device route runs the kernel on uint8 byte planes (quals, codes,
+  hap) and the kernel expands the coefficients itself
+  (``config.quals_expand``).  The flat path uploads the batch's read and
+  haplotype streams once each and builds the planes on the card
+  (``ops/pairhmm/gather.py``); the dict path packs them on the host.
+  With ``config.upload="f32"`` the flat path ships the native fp32
+  coefficient pack instead and runs the kernel's coefficient front end
+  (``pairhmm_forward``);
 * fp32 results below ``config.min_accepted`` are recomputed in fp64 on
   the host (native), and the output is log10(result) - log10(IC).
 
@@ -58,12 +61,12 @@ from acc_genomics_tpu_torch.ops.pairhmm.kernel import (
 from acc_genomics_tpu_torch import native
 from acc_genomics_tpu_torch.config import PairHMMConfig
 from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext
+from acc_genomics_tpu_torch.ops.pairhmm.gather import GatherLayout, pairhmm_gather
 from acc_genomics_tpu_torch.ops.pairhmm.pack import pack_pairhmm_batch, pack_pairhmm_quals
 from acc_genomics_tpu_torch.parallel.sharded import (
     pairhmm_forward_dp,
     pairhmm_forward_dpsp_from_quals,
 )
-from acc_genomics_tpu_torch.utils.convert import HAP_PAD
 from acc_genomics_tpu_torch.utils.timer import Timer
 
 # the preferred C of the band pipeline on the SP route.  C changes no bit
@@ -187,10 +190,10 @@ class DispatchCostModel:
 @dataclasses.dataclass
 class _Bucket:
     """One launch: the (5*rows + rows + cols, bp) byte region q, i, d, c,
-    rs, hap_ext, which ``planes`` stack to (empty when the launch packs
-    the region in place); lane k holds pair ``sel[k]`` (lanes past
-    ``len(sel)`` are padding).  ``sp_chunk_rows`` > 0 runs it on the
-    mesh's DP x SP band pipeline at that C, else on the forward kernel."""
+    rs, hap_ext, which ``planes`` stack to; lane k holds pair ``sel[k]``
+    (lanes past ``len(sel)`` are padding).  ``sp_chunk_rows`` > 0 runs it
+    on the mesh's DP x SP band pipeline at that C, else on the forward
+    kernel."""
 
     sel: np.ndarray
     planes: List[np.ndarray]
@@ -300,21 +303,21 @@ class PairHMMEngine:
 
     # -- device route -----------------------------------------------------
 
-    def _stage_and_run(self, sels, nbytes: int, fill, run, pack=None) -> _Pending:
+    def _stage_and_run(self, sels, nbytes: int, fill, run) -> _Pending:
         """One host buffer of ``nbytes`` (pinned on CUDA) filled by
-        ``fill(view)`` and then ``pack(view)``, one H2D copy of it,
-        ``run(device_buffer)`` launching one result tensor a bucket on the
-        engine's stream, and one D2H copy of all results, which the
-        returned _Pending waits for."""
+        ``fill(view)``, one H2D copy of it, ``run(device_buffer)``
+        launching one result tensor a bucket on the engine's stream (its
+        launches in a ``pairhmm.launch`` span of its own), and one D2H
+        copy of all results, which the returned _Pending waits for."""
         with Timer("pairhmm.stage"):
             staged = torch.empty(nbytes, dtype=torch.uint8, pin_memory=self._cuda)
             fill(staged.numpy())
-        if pack is not None:
-            with Timer("pairhmm.pack"):
-                pack(staged.numpy())
+        with self._on_stream():
+            with Timer("pairhmm.launch"):
+                dev = staged.to(self.device, non_blocking=True)
+            outs = run(dev)
         with Timer("pairhmm.launch"), self._on_stream():
-            dev = staged.to(self.device, non_blocking=True)
-            allres = torch.cat(run(dev))
+            allres = torch.cat(outs)
             done = None
             if self._cuda:
                 out_host = torch.empty(
@@ -327,13 +330,10 @@ class PairHMMEngine:
                 out_host = allres
         return _Pending(list(sels), out_host, done, staged, nbytes)
 
-    def _launch(self, buckets: Sequence[_Bucket], pack=None) -> _Pending:
+    def _launch(self, buckets: Sequence[_Bucket]) -> _Pending:
         """Stage every bucket's byte planes in one host buffer, upload it
         once, launch one kernel (or one band pipeline) per bucket and
-        start one D2H copy of all results.  ``pack(bucket, region)``, where
-        given, writes a bucket's planes straight into its (nrow, bp) region
-        of the staged buffer; else the buckets' ``planes`` are copied
-        there."""
+        start one D2H copy of all results."""
         with Timer("pairhmm.launch"):
             u8_offs, off = [], 0
             for b in buckets:
@@ -355,14 +355,10 @@ class PairHMMEngine:
                 meta[: len(b.lens)] = b.lens
                 meta[len(b.lens) :] = b.hlens
 
-        def pack_all(hv):
-            for b, uo in zip(buckets, u8_offs):
-                bp = len(b.lens)
-                pack(b, hv[uo : uo + b.nrow * bp].reshape(b.nrow, bp))
-
         expand = self.config.quals_expand
         ic = float(self.ctx32.initial_constant)
 
+        @Timer("pairhmm.launch")
         def run(dev):
             outs = []
             for b, uo, mo in zip(buckets, u8_offs, meta_offs):
@@ -385,8 +381,42 @@ class PairHMMEngine:
                 outs.append(res[: len(b.sel)])
             return outs
 
-        return self._stage_and_run([b.sel for b in buckets], off, fill, run,
-                                   None if pack is None else pack_all)
+        return self._stage_and_run([b.sel for b in buckets], off, fill, run)
+
+    def _launch_gathered(self, streams, groups) -> _Pending:
+        """The flat byte-plane route: the batch's streams, each lane's
+        offsets and lengths and the bucket table staged in one buffer
+        (``GatherLayout``) and uploaded once, one launch of the gather
+        building every bucket's byte planes on the device, one forward
+        launch a bucket on its views.  ``streams``: the flat (rs, q, i, d,
+        c, offs, lens, hap, hoffs, hlens); ``groups``: (sel, rows, cols)
+        per bucket, sel in launch order."""
+        rs, q, i, d, c, offs, lens, hap, hoffs, hlens = streams
+        planes = (q, i, d, c, rs, hap)
+        sels = [sel for sel, _, _ in groups]
+        with Timer("pairhmm.stage"):
+            layout = GatherLayout.plan([(rows, cols, len(sel)) for sel, rows, cols in groups],
+                                       [len(p) for p in planes])
+
+        def fill(hv):
+            layout.fill(hv, planes, offs, lens, hoffs, hlens, sels)
+
+        expand = self.config.quals_expand
+        ic = float(self.ctx32.initial_constant)
+
+        def run(dev):
+            with Timer("pairhmm.pack"):
+                gathered = pairhmm_gather(dev, layout)
+            self.stats["card_packed"] = self.stats.get("card_packed", 0) + layout.lanes
+            with Timer("pairhmm.launch"):
+                outs = []
+                for b in range(len(groups)):
+                    outs.append(pairhmm_forward_from_quals(
+                        *layout.bucket(b, gathered, dev), *self._tables, ic, expand=expand))
+                    self.stats["device_calls"] += 1
+            return outs
+
+        return self._stage_and_run(sels, layout.nbytes, fill, run)
 
     def _launch_f32(self, streams, groups) -> _Pending:
         """The f32 upload: each bucket's native fp32 coefficient pack
@@ -418,6 +448,7 @@ class PairHMMEngine:
                 if packed is None:
                     raise RuntimeError("upload='f32' needs the native host library")
 
+        @Timer("pairhmm.launch")
         def run(dev):
             outs = []
             for (sel, rows, cols), (fo, io) in zip(groups, regions):
@@ -726,19 +757,7 @@ class PairHMMEngine:
         if groups and self.config.upload == "f32":
             pending = self._launch_f32(streams, groups)
         elif groups:
-            # each bucket packed straight into its region of the staged
-            # buffer: no buffer of its own, no copy into the stage
-            def pack(b, region):
-                native.pairhmm_pack_quals_flat(
-                    rs, q, i, d, c, np.ascontiguousarray(offs[b.sel]), b.lens,
-                    hap, np.ascontiguousarray(hoffs[b.sel]), b.hlens,
-                    b.rows, b.cols, HAP_PAD, out=region,
-                )
-
-            pending = self._launch([
-                _Bucket(sel, [], np.ascontiguousarray(lens[sel]),
-                        np.ascontiguousarray(hlens[sel]), rows, cols)
-                for sel, rows, cols in groups], pack)
+            pending = self._launch_gathered(streams, groups)
         if pending is not None:
             self.stats["h2d_bytes"] = (
                 self.stats.get("h2d_bytes", 0) + pending.h2d_bytes

@@ -52,8 +52,10 @@ class HaplotypeCallerCore:
         # phase split, the readings of the spans hc.realign (sw),
         # hc.likelihoods (pairhmm) and hc.prepare (host); where the pairs
         # were scored: long_pairs, reads past LONG_READ on the device
-        # route, and host_pairs, pairs on the native host forward
-        self.anatomy = dict(sw_s=0.0, pairhmm_s=0.0, host_s=0.0, long_pairs=0, host_pairs=0)
+        # route, host_pairs, pairs on the native host forward, and
+        # card_pack_pairs, pairs whose byte planes the device built
+        self.anatomy = dict(sw_s=0.0, pairhmm_s=0.0, host_s=0.0, long_pairs=0, host_pairs=0,
+                            card_pack_pairs=0)
 
     def reset_anatomy(self):
         for k in self.anatomy:
@@ -108,6 +110,7 @@ class HaplotypeCallerCore:
                 pair_offs, pair_hoffs = flat(p_offs, np.int64), flat(p_hoffs, np.int64)
             pairhmm = self.engine.pairhmm
             host0 = pairhmm.stats.get("host_fallback", 0)
+            packed0 = pairhmm.stats.get("card_packed", 0)
             liks_flat = pairhmm.compute_pairs_flat(
                 rs, q, i, d, c, pair_lens, hapc, pair_hlens,
                 offs=pair_offs, hoffs=pair_hoffs)
@@ -115,6 +118,7 @@ class HaplotypeCallerCore:
         on_device = (pair_lens <= cfg.max_read_len) & (pair_hlens <= cfg.max_hap_len)
         self.anatomy["long_pairs"] += int(np.count_nonzero(on_device & (pair_lens > LONG_READ)))
         self.anatomy["host_pairs"] += pairhmm.stats.get("host_fallback", 0) - host0
+        self.anatomy["card_pack_pairs"] += pairhmm.stats.get("card_packed", 0) - packed0
         self.anatomy["host_s"] += prepare.elapsed
         self.anatomy["sw_s"] += realign.elapsed
         self.anatomy["pairhmm_s"] += likelihoods.elapsed

@@ -168,26 +168,18 @@ def sw_align_host(refs, alts, strategy: int, params=None, max_elems: int = 1536)
 
 
 def pairhmm_pack_quals_flat(
-    rs, q, i, d, c, offs, lens, hap, hoffs, hlens, rows, cols, hap_pad, out=None,
+    rs, q, i, d, c, offs, lens, hap, hoffs, hlens, rows, cols, hap_pad,
 ):
     """Byte-plane pack from already-flat (concatenated) inputs; offs/lens
     select each pair.  The six planes are packed into ONE contiguous
-    (5*rows + rows + cols, bp) uint8 buffer: ``out`` (C-contiguous, of
-    that shape, e.g. a view of a pinned staging buffer) or a new one.
-    Returns (q, i, d, c, rs, hap_ext) views into that buffer or None if
-    the lib is unavailable."""
+    (5*rows + rows + cols, bp) uint8 buffer.  Returns (q, i, d, c, rs,
+    hap_ext) views into that buffer or None if the lib is unavailable."""
     lib = get_lib()
     if lib is None:
         return None
     bp = len(lens)
     ndiag = rows + cols
-    shape = (5 * rows + ndiag, bp)
-    if out is None:
-        big = np.empty(shape, np.uint8)
-    elif out.shape != shape or out.dtype != np.uint8 or not out.flags.c_contiguous:
-        raise ValueError(f"out must be C-contiguous uint8 of shape {shape}")
-    else:
-        big = out
+    big = np.empty((5 * rows + ndiag, bp), np.uint8)
     oq = big[0:rows]
     oi = big[rows : 2 * rows]
     od = big[2 * rows : 3 * rows]

@@ -2,7 +2,8 @@
 ``chip_smoke.py``, ``tools/kernel_ab.py`` and the tests: the SW fill's
 edge batches, the extension kernel's batches and edges, the fused seed
 extension's edge batches, ExtendEngine's seeds, the PairHMM kernel's
-benchmark pairs, engine batches and edge packs, a genome and reads that
+benchmark pairs, engine batches and edge packs, the byte-plane gather's
+cases and the HC cells' PairHMM batches, a genome and reads that
 overflow the SMEM caps, all made from numpy seeds, and a recorder of a
 wrapper's calls."""
 
@@ -589,6 +590,81 @@ def pairhmm_engine_batches(n: int = 1):
     rng = np.random.default_rng(1)
     return [gen_pairhmm_input(rng, 1024, 16, max_read_len=150, max_hap_len=380,
                               derived=True) for _ in range(n)]
+
+
+# the byte-plane gather's cases: read lengths, haplotype lengths and the
+# (rows, cols) buckets; every read meets every haplotype, as in
+# HaplotypeCallerCore, lengths 0 and each bucket's edges among them
+GATHER_CASES = {
+    "illumina": ((0, 1, 31, 32, 63, 95, 127, 150, 191, 255) + (100,) * 60 + (150,) * 60,
+                 (0, 1, 128, 250, 256, 400, 512),
+                 [(r, c) for r in (32, 64, 96, 128, 192, 256) for c in (128, 256, 512)]),
+    "hifi": ((0, 255, 256, 300, 319, 360, 468, 521, 575, 1023) + (360,) * 30,
+             (0, 1, 500, 700, 1024),
+             [(r, c) for r in (320, 576, 1024) for c in (512, 1024)]),
+    "empty": ((0, 0, 0), (0, 0), [(32, 128)]),
+}
+
+
+def gather_case(rng, read_lens, hap_lens, buckets):
+    """Flat streams of reads of ``read_lens`` against haplotypes of
+    ``hap_lens``, every read with every haplotype, and the engine's launch
+    groups over ``buckets`` ((rows, cols); each pair in the first that
+    holds it, read shorter than rows and haplotype within cols): lanes in
+    a shuffled order sorted by haplotype length, longest first.  Returns
+    ((q, i, d, c, rs, hap), offs, lens, hoffs, hlens, [(sel, rows, cols)])."""
+    rl = np.asarray(read_lens, np.int32)
+    hl = np.asarray(hap_lens, np.int32)
+    q, i, d, c, rs = (rng.integers(0, 128, int(rl.sum()), dtype=np.uint8) for _ in range(5))
+    hap = rng.integers(0, 5, int(hl.sum()), dtype=np.uint8)
+    starts = lambda n: np.concatenate([[0], np.cumsum(n)[:-1]]).astype(np.int64)
+    offs, lens = np.repeat(starts(rl), len(hl)), np.repeat(rl, len(hl))
+    hoffs, hlens = np.tile(starts(hl), len(rl)), np.tile(hl, len(rl))
+    order = rng.permutation(len(lens))
+    home = np.array([next(b for b, (rows, cols) in enumerate(buckets)
+                          if lens[k] < rows and hlens[k] <= cols) for k in order])
+    groups = []
+    for b, (rows, cols) in enumerate(buckets):
+        sel = order[home == b]
+        if len(sel):
+            groups.append((sel[np.argsort(-hlens[sel], kind="stable")], rows, cols))
+    return (q, i, d, c, rs, hap), offs, lens, hoffs, hlens, groups
+
+
+def native_planes(streams, offs, lens, hoffs, hlens, groups) -> np.ndarray:
+    """The native host pack of every group's byte planes
+    (``native.pairhmm_pack_quals_flat``), back to back in launch order."""
+    from acc_genomics_tpu_torch import native
+    from acc_genomics_tpu_torch.utils.convert import HAP_PAD
+
+    q, i, d, c, rs, hap = streams
+    out = [native.pairhmm_pack_quals_flat(rs, q, i, d, c, offs[sel], lens[sel], hap,
+                                          hoffs[sel], hlens[sel], rows, cols, HAP_PAD)[0].base
+           for sel, rows, cols in groups]
+    return np.concatenate([o.reshape(-1) for o in out]) if out else np.zeros(0, np.uint8)
+
+
+def hc_flat_batch(regions):
+    """``PairHMMEngine.compute_pairs_flat`` arguments of HC ``regions``
+    ([(reference window, haplotypes, reads)], each read a dict of rs, q,
+    i, d, c): every read against every haplotype of its region, the
+    streams concatenated once, as HaplotypeCallerCore sends them.
+    Returns (positional args, offs and hoffs keywords)."""
+    reads = [r for _, _, rs in regions for r in rs]
+    haps = [h for _, hs, _ in regions for h in hs]
+    starts = lambda n: np.concatenate([[0], np.cumsum(n)[:-1]]).astype(np.int64)
+    rl = np.array([len(r["rs"]) for r in reads], np.int32)
+    hl = np.array([len(h) for h in haps], np.int32)
+    r_idx, h_idx, ri, hi = [], [], 0, 0
+    for _, hs, rs in regions:
+        r_idx.append(np.repeat(np.arange(ri, ri + len(rs)), len(hs)))
+        h_idx.append(np.tile(np.arange(hi, hi + len(hs)), len(rs)))
+        ri, hi = ri + len(rs), hi + len(hs)
+    r_idx, h_idx = np.concatenate(r_idx), np.concatenate(h_idx)
+    cat = lambda key: np.concatenate([r[key] for r in reads])
+    args = (cat("rs"), cat("q"), cat("i"), cat("d"), cat("c"), rl[r_idx],
+            np.concatenate(haps), hl[h_idx])
+    return args, dict(offs=starts(rl)[r_idx], hoffs=starts(hl)[h_idx])
 
 
 def pairhmm_edge_packs(dev):

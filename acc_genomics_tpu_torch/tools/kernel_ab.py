@@ -4,7 +4,8 @@ in turns on one card at the same inputs.
     python -m acc_genomics_tpu_torch.tools.kernel_ab OLD_DIR [KERNEL ...]
 
 KERNEL is ``extend``, ``pairhmm``, ``band_superstep``, ``sw_fill``,
-``sw_walk``, ``fused`` or ``smem`` (the default: all seven).  OLD_DIR holds the
+``sw_walk``, ``fused``, ``smem`` or ``pairhmm_gather`` (the default: all
+eight).  OLD_DIR holds the
 earlier commit's sources of the kernels named (``git show <commit>:<path>``
 of ``acc_genomics_tpu_torch/ops/.../csrc/``), built with the package's
 nvcc flags into its build directory:
@@ -37,7 +38,14 @@ nvcc flags into its build directory:
   smem     ``smem_collect.cu`` (the same C interface ``smem_collect``) at
            the default caps (24/24): chip_smoke.py phase 12's 65,536
            reads and phase 14's 2,048 (both of 101, bucket 128) on the
-           same index, every output bit for bit.
+           same index, every output bit for bit;
+  pairhmm_gather  no old sources (OLD_DIR is not read): the card's
+           byte-plane gather (``pairhmm_gather.cu``) against the native
+           host pack it replaced (``native.pairhmm_pack_quals_flat``, every
+           bucket into a buffer of its own, host clock; the engine packed
+           into its pinned stage), on the PairHMM batch of 32 regions of each
+           HC configuration's generator (``port_bench``, so run from the
+           checkout's root), the planes bit for bit.
 
 Every mode but ``band_superstep`` calls both builds through their C entry
 points with the same prepared arguments, so no wrapper's host work is
@@ -61,7 +69,8 @@ import sys
 import numpy as np
 import torch
 
-from acc_genomics_tpu_torch import build
+from acc_genomics_tpu_torch import build, native
+from acc_genomics_tpu_torch.utils.convert import HAP_PAD
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -528,8 +537,69 @@ def band_superstep_ab(old_dir: str, dev) -> dict:
     return out
 
 
+def pairhmm_gather_ab(old_dir: str, dev) -> dict:
+    """The gather's card time (CUDA events) beside the native host pack's
+    (host clock), median of 7 each, at each HC cell's batch shape."""
+    import time
+
+    from acc_genomics_tpu_torch.config import engine_config_from_dict
+    from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
+    from acc_genomics_tpu_torch.ops.pairhmm import gather as G
+    from acc_genomics_tpu_torch.tools.bench_shapes import hc_flat_batch, native_planes
+    # the HC cells' configurations and region generator, from the
+    # benchmark harness beside the package (run from the checkout's root)
+    from port_bench.gen.regions import make_regions
+    from port_bench.manifest import Manifest
+
+    regs = {"new": ptxas(G.build_kernels())}
+    for entry, line in regs["new"].items():
+        print(f"  ptxas pairhmm_gather: {entry}: {line}", flush=True)
+    out = {"ptxas": regs}
+    for name in ("gatk_hc_wgs30x", "gatk_hc_hifi28x"):
+        conf = Manifest().config(name)
+        args, kw = hc_flat_batch(make_regions(np.random.default_rng(0), conf, 32))
+        eng = PairHMMEngine(engine_config_from_dict(conf["engine"]).pairhmm, device=dev)
+        seen = []
+        real = eng._launch_gathered
+        eng._launch_gathered = lambda s, g: seen.append((s, g)) or real(s, g)
+        eng.compute_pairs_flat(*args, **kw)
+        (streams, groups), = seen
+        rs, q, i, d, c, offs, lens, hap, hoffs, hlens = streams
+        planes = (q, i, d, c, rs, hap)
+        sels = [sel for sel, _, _ in groups]
+        layout = G.GatherLayout.plan([(rows, cols, len(sel)) for sel, rows, cols in groups],
+                                     [len(p) for p in planes])
+        staged = torch.empty(layout.nbytes, dtype=torch.uint8, pin_memory=True)
+        layout.fill(staged.numpy(), planes, offs, lens, hoffs, hlens, sels)
+        up = staged.to(dev)
+        got = G.pairhmm_gather(up, layout)
+        batch = (planes, offs, lens, hoffs, hlens, groups)
+        if not np.array_equal(got.cpu().numpy(), native_planes(*batch)):
+            raise AssertionError(f"pairhmm_gather, {name}: card and host planes differ")
+
+        def host_pack():
+            for sel, rows, cols in groups:
+                native.pairhmm_pack_quals_flat(
+                    rs, q, i, d, c, offs[sel], lens[sel], hap, hoffs[sel], hlens[sel],
+                    rows, cols, HAP_PAD)
+
+        host = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            host_pack()
+            host.append(1e3 * (time.perf_counter() - t0))
+        out[name] = {"pairs": int(layout.lanes), "buckets": len(groups),
+                     "shapes": sorted({(rows, cols) for _, rows, cols in groups}),
+                     "card_ms": cuda_ms(lambda: G.pairhmm_gather(up, layout)),
+                     "host_pack_ms": statistics.median(host[1:]),
+                     "upload_bytes": layout.nbytes, "planes_bytes": layout.planes_bytes}
+        print(f"pairhmm_gather, {name}: {out[name]}", flush=True)
+    return out
+
+
 ABS = {"extend": extend_ab, "pairhmm": pairhmm_ab, "band_superstep": band_superstep_ab,
-       "sw_fill": sw_fill_ab, "sw_walk": sw_walk_ab, "fused": fused_ab, "smem": smem_ab}
+       "sw_fill": sw_fill_ab, "sw_walk": sw_walk_ab, "fused": fused_ab, "smem": smem_ab,
+       "pairhmm_gather": pairhmm_gather_ab}
 
 
 def main(argv) -> int:

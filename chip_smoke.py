@@ -9,8 +9,9 @@ version at the benchmark shapes, on the edges of its segment design
 packs whose last warp is partly filled, all three front ends) and at the
 shapes the engine launches,
 drives the PairHMM engine's main path (compute_matrix_flat,
-compute_pairs_flat_stream) on a WES-shaped batch of 16,384 pairs, and
-checks the contract edges (reference corpus, fp64 underflow recompute,
+compute_pairs_flat_stream) on a WES-shaped batch of 16,384 pairs, holds
+the byte-plane gather bit for bit against its plain version on that
+path's upload, and checks the contract edges (reference corpus, fp64 underflow recompute,
 host fallback).  Smith-Waterman: checks the fill and walk kernels bit for
 bit against their plain versions at the SW benchmark shape (8192 pairs,
 four overhang strategies) and on the edges of the fill's warp per pair
@@ -88,6 +89,9 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 CU_SOURCE = "acc_genomics_tpu_torch/ops/pairhmm/csrc/pairhmm_forward.cu"
 TPU_KERNEL = "acc_genomics_tpu/ops/pairhmm/kernel.py:79"
+# the byte-plane gather: on the TPU the planes are packed on the host
+GATHER_SOURCE = "acc_genomics_tpu_torch/ops/pairhmm/csrc/pairhmm_gather.cu"
+GATHER_TPU = "acc_genomics_tpu/ops/pairhmm/pack.py:220"
 SW_FILL_SOURCE = "acc_genomics_tpu_torch/ops/sw/csrc/sw_fill.cu"
 SW_FILL_TPU = "acc_genomics_tpu/ops/sw/kernel.py:57"
 SW_WALK_SOURCE = "acc_genomics_tpu_torch/ops/sw/csrc/sw_walk.cu"
@@ -2028,6 +2032,7 @@ def main() -> int:
     from acc_genomics_tpu_torch.build import ensure_native, find_nvcc
     from acc_genomics_tpu_torch.engine.pairhmm_engine import PairHMMEngine
     from acc_genomics_tpu_torch.ops.pairhmm import band_kernel as BK
+    from acc_genomics_tpu_torch.ops.pairhmm import gather as G
     from acc_genomics_tpu_torch.ops.pairhmm import kernel as K
     from acc_genomics_tpu_torch.ops.extend import kernel as EK
     from acc_genomics_tpu_torch.ops.smem import kernel as MK
@@ -2077,11 +2082,11 @@ def main() -> int:
 
     # -- 2. build: one nvcc per source, all started together ------------------
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
         futures = [pool.submit(K.build_kernels), pool.submit(BK.build_kernels),
-                   pool.submit(SK.build_kernels), pool.submit(EK.build_kernels),
-                   pool.submit(MK.build_kernels)]
-        libs = [f.result() for f in futures[:2]] + [b for f in futures[2:]
+                   pool.submit(G.build_kernels), pool.submit(SK.build_kernels),
+                   pool.submit(EK.build_kernels), pool.submit(MK.build_kernels)]
+        libs = [f.result() for f in futures[:3]] + [b for f in futures[3:]
                                                     for b in f.result().values()]
     wall = time.perf_counter() - t0
     for built in libs:
@@ -2151,9 +2156,11 @@ def main() -> int:
     batch_cells = int(sum(len(r["rs"]) * len(h) for r in reads for h in haps))
     eng = PairHMMEngine(device="cuda")
     # warm-up (allocator, pinned pool, stream); keeps copies of the byte
-    # planes of every bucket the engine launches, for the check below
-    launched = []
-    with capture_calls(engine_module, "pairhmm_forward_from_quals", launched):
+    # planes of every bucket the engine launches, and of the upload and
+    # layout of its gather, for the checks below
+    launched, gathered = [], []
+    with capture_calls(engine_module, "pairhmm_forward_from_quals", launched), \
+            capture_calls(engine_module, "pairhmm_gather", gathered):
         eng.compute_matrix_flat(*f0)
     torch.cuda.synchronize()
     stats0 = dict(eng.stats)
@@ -2169,6 +2176,7 @@ def main() -> int:
     stream_s = time.perf_counter() - t0
     launches = K.LAUNCHES["pairhmm_forward_from_quals"]
     coef_launches = K.LAUNCHES["pairhmm_forward"]
+    gather_launches = K.LAUNCHES["pairhmm_gather"]
 
     device_calls = eng.stats["device_calls"] - stats0["device_calls"]
     e2e_s = statistics.median(e2e)
@@ -2182,7 +2190,8 @@ def main() -> int:
         f"s={stream_s:.5f} gcups={3 * batch_cells / stream_s / 1e9:.3f} [{card}]")
     say(f"engine stats: {json.dumps(eng.stats, sort_keys=True)}")
     check(launches == device_calls >= E2E_REPEATS * len(launched) > 0
-          and coef_launches == 0,
+          and coef_launches == 0 and gather_launches == E2E_REPEATS + len(batches)
+          and len(gathered) == 1,
           f"main path launches {dict(K.LAUNCHES)} for {device_calls} buckets")
     lik = liks[0]
     check(lik.shape == (len(reads), len(haps)) and np.isfinite(lik).all(),
@@ -2207,6 +2216,24 @@ def main() -> int:
     say(f"engine buckets (rows, cols, pairs) {shapes}: kernel_ms={k_ms:.4f} "
         f"plain_ms={p_ms:.4f} kernel_gcups={batch_cells / (k_ms * 1e-3) / 1e9:.3f} "
         f"bound {pairhmm_bound} [{card}]")
+
+    # the gather against its plain version on the warm-up's upload, bit
+    # for bit, and against the planes the forward kernel was given
+    (upload, layout), _ = gathered[0]
+    planes = G.pairhmm_gather(upload, layout)
+    check(torch.equal(planes, G.pairhmm_gather_plain(upload, layout)),
+          "engine gather: kernel and plain planes differ")
+    check(all(all(torch.equal(v, w) for v, w in zip(layout.bucket(b, planes, upload), a[:8]))
+              for b, (a, _) in enumerate(launched)),
+          "engine gather: planes differ from those the forward kernel was given")
+    g_ms = cuda_time_ms(lambda: G.pairhmm_gather(upload, layout))
+    gp_ms = cuda_time_ms(lambda: G.pairhmm_gather_plain(upload, layout), repeats=1,
+                         warm=False)
+    # the upload read once, the planes written once
+    gather_bound = bound(layout.nbytes + layout.planes_bytes, 0, INT32_OPS_PER_S)
+    say(f"engine gather: {layout.lanes} lanes, {len(layout.table)} buckets, upload "
+        f"{layout.nbytes} B, planes {layout.planes_bytes} B; bit for bit vs plain; "
+        f"kernel_ms={g_ms:.4f} plain_ms={gp_ms:.4f} bound {gather_bound} [{card}]")
 
     tcs = [dict(hap=h, **r) for r in reads for h in haps]
     raw_host = native.pairhmm_forward(tcs, np.float32)
@@ -2295,6 +2322,11 @@ def main() -> int:
         "replaces": TPU_KERNEL, "launches": launches, "max_abs_err": eng_err,
         "ms": k_ms, "plain_ms": p_ms, **pairhmm_bound,
     }
+    gather_entry = {
+        "name": "pairhmm_gather", "route": "cuda", "source": GATHER_SOURCE,
+        "replaces": GATHER_TPU, "launches": gather_launches, "max_abs_err": 0,
+        "ms": g_ms, "plain_ms": gp_ms, **gather_bound,
+    }
 
     # -- 6-9. Smith-Waterman and HaplotypeCaller ---------------------------------
     sw_entries = sw_phases(card)
@@ -2324,7 +2356,7 @@ def main() -> int:
     check(not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "acc_genomics_tpu" or m.startswith("acc_genomics_tpu.")],
           "a phase imported jax or the JAX package")
-    entries = [pairhmm_entry, *sw_entries, extend_entry, smem_entry, fused_entry, band_entry]
+    entries = [pairhmm_entry, gather_entry, *sw_entries, extend_entry, smem_entry, fused_entry, band_entry]
     for run in phase_launches:  # phases 16-19 drive their paths through these kernels
         for e in entries:
             e["launches"] += run.get(e["name"], 0)

@@ -830,3 +830,83 @@ def test_cuda_service_loopback(cuda):
         client.shutdown_server()
     finally:
         server.stop()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["empty", "hifi", "illumina"])
+def test_cuda_gather_equals_the_native_pack(cuda, case):
+    """The byte-plane gather on the card: every byte of every bucket's
+    region the native host pack's, one launch."""
+    from acc_genomics_tpu_torch.ops.pairhmm.gather import GatherLayout, pairhmm_gather
+    from acc_genomics_tpu_torch.tools.bench_shapes import (
+        GATHER_CASES,
+        gather_case,
+        native_planes,
+    )
+
+    ensure_native()
+    batch = gather_case(np.random.default_rng(3), *GATHER_CASES[case])
+    streams, offs, lens, hoffs, hlens, groups = batch
+    layout = GatherLayout.plan([(rows, cols, len(sel)) for sel, rows, cols in groups],
+                               [len(s) for s in streams])
+    hv = np.empty(layout.nbytes, np.uint8)
+    layout.fill(hv, streams, offs, lens, hoffs, hlens, [sel for sel, _, _ in groups])
+    dev = torch.from_numpy(hv).to(cuda)
+    before = K.LAUNCHES["pairhmm_gather"]
+    planes = pairhmm_gather(dev, layout)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["pairhmm_gather"] == before + 1
+    assert planes.device == dev.device
+    assert np.array_equal(planes.cpu().numpy(), native_planes(*batch))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["gatk_hc_wgs30x", "gatk_hc_hifi28x"])
+def test_cuda_flat_route_equals_the_native_pack_route(cuda, name):
+    """compute_pairs_flat on a seeded HC batch: the float64 likelihoods
+    of the planes gathered on the card equal, bit for bit, those of the
+    same buckets' planes packed by the native host pack and run through
+    the same forward kernel and epilogue; one gather launch a call."""
+    from acc_genomics_tpu_torch.config import engine_config_from_dict
+    from acc_genomics_tpu_torch.tools.bench_shapes import hc_flat_batch
+    from acc_genomics_tpu_torch.utils.convert import HAP_PAD
+    from port_bench.gen.regions import make_regions
+    from port_bench.manifest import Manifest
+
+    ensure_native()
+    conf = Manifest().config(name)
+    args, kw = hc_flat_batch(make_regions(np.random.default_rng(21), conf, 6))
+    cfg = engine_config_from_dict(conf["engine"]).pairhmm
+    eng = PairHMMEngine(cfg, device="cuda")
+    seen = []
+    real = eng._launch_gathered
+
+    def spy(streams, groups):
+        seen.append((streams, groups))
+        return real(streams, groups)
+
+    eng._launch_gathered = spy
+    before = dict(K.LAUNCHES)
+    got = eng.compute_pairs_flat(*args, **kw)
+    torch.cuda.synchronize()
+    (streams, groups), = seen
+    assert K.LAUNCHES["pairhmm_gather"] - before.get("pairhmm_gather", 0) == 1
+    assert (K.LAUNCHES["pairhmm_forward_from_quals"]
+            - before.get("pairhmm_forward_from_quals", 0) == len(groups) > 0)
+    assert eng.stats["card_packed"] == len(args[5]) - eng.stats.get("host_fallback", 0)
+
+    rs, q, i, d, c, offs, lens, hap, hoffs, hlens = streams
+    ctx = PairHMMContext(np.float32)
+    ph2pr, m2m, _ = context_tables(ctx, cuda)
+    raw = np.zeros(len(lens), np.float32)
+    for sel, rows, cols in groups:
+        planes = native.pairhmm_pack_quals_flat(rs, q, i, d, c, offs[sel], lens[sel], hap,
+                                                hoffs[sel], hlens[sel], rows, cols, HAP_PAD)
+        dev = [torch.from_numpy(np.ascontiguousarray(p)).to(cuda) for p in planes]
+        meta = [torch.from_numpy(np.ascontiguousarray(x[sel])).to(cuda) for x in (lens, hlens)]
+        raw[sel] = K.pairhmm_forward_from_quals(
+            *dev, *meta, ph2pr, m2m, float(ctx.initial_constant),
+            expand=cfg.quals_expand).cpu().numpy()
+    want = eng._epilogue_flat(*streams, raw)
+    assert got.dtype == np.float64 and np.all(np.isfinite(got))
+    assert got.tobytes() == want.tobytes()

@@ -68,7 +68,8 @@ def test_region_matches_jax(rng):
     assert got.likelihoods.shape == (5, 2)
     assert got.best_hap[0] == 1
     assert got.hap_cigars[0] == ([(300, 0)], 0)
-    assert set(port.anatomy) == {"sw_s", "pairhmm_s", "host_s", "long_pairs", "host_pairs"}
+    assert set(port.anatomy) == {"sw_s", "pairhmm_s", "host_s", "long_pairs", "host_pairs",
+                                 "card_pack_pairs"}
     assert port.anatomy["long_pairs"] == port.anatomy["host_pairs"] == 0
 
 

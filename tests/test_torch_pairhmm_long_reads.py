@@ -28,7 +28,6 @@ from acc_genomics_tpu_torch.ops.pairhmm import kernel as K
 from acc_genomics_tpu_torch.ops.pairhmm.context import PairHMMContext
 from acc_genomics_tpu_torch.ops.pairhmm.convert import context_tables, quals_to_torch
 from acc_genomics_tpu_torch.ops.pairhmm.pack import pack_pairhmm_quals
-from acc_genomics_tpu_torch.utils.convert import HAP_PAD
 from port_bench.gen.regions import make_regions
 from port_bench.reference import pairhmm as ref_pairhmm
 
@@ -158,29 +157,6 @@ def test_tall_bucket_short_read_and_inert_lanes(expand):
     assert np.all(raw[len(tcs) - 1:] == 0.0)
     got = np.log10(raw[:3].astype(np.float64)) - np.float64(ctx.log10_initial_constant)
     _assert_close(got, tcs[:3])
-
-
-def test_the_flat_pack_writes_into_a_given_buffer():
-    """The flat path's native pack into a view of a larger buffer (as the
-    engine packs into its staged buffer) equals its pack into a buffer of
-    its own and writes nothing outside the view; a view of another shape
-    is refused."""
-    rng = np.random.default_rng(9)
-    rs, q, i, d, c, lens, hap, hlens = _flat(_pairs(rng, (40, 300, 575), 600))
-    offs = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
-    hoffs = np.concatenate([[0], np.cumsum(hlens)[:-1]]).astype(np.int64)
-    args = (rs, q, i, d, c, offs, lens, hap, hoffs, hlens, 576, 1024, HAP_PAD)
-    own = native.pairhmm_pack_quals_flat(*args)[0].base
-    assert own.shape == (6 * 576 + 1024, len(lens))
-    buf = np.full(own.size + 12, 0xAB, np.uint8)
-    view = buf[7:7 + own.size].reshape(own.shape)
-    planes = native.pairhmm_pack_quals_flat(*args, out=view)
-    assert planes[0].base is view or np.shares_memory(planes[0], view)
-    assert np.array_equal(view, own)
-    assert np.all(buf[:7] == 0xAB) and np.all(buf[7 + own.size:] == 0xAB)
-    with pytest.raises(ValueError, match="shape"):
-        native.pairhmm_pack_quals_flat(*args, out=np.empty((own.shape[0] - 1, own.shape[1]),
-                                                            np.uint8))
 
 
 def _hifi_regions(n):
